@@ -2,10 +2,18 @@
 NVIDIA H100.
 
 Sparse general matrix-matrix multiplication C = A @ B over CSR matrices
-with the bucketed expand-sort-compress engine: rows binned by product
-count into power-of-two width classes, one gather-multiply per class, and
-a hand-written CUDA kernel (``csrc/esc_tail.cu``) that sorts, accumulates
-and left-packs each row.  Computes in float64 (or float32) natively.
+with two engines and a per-matrix choice between them (``mode="auto"``):
+
+* the bucketed expand-sort-compress engine: rows binned by product count
+  into power-of-two width classes, one gather-multiply per class, and a
+  hand-written CUDA kernel (``csrc/esc_tail.cu``) that sorts, accumulates
+  and left-packs each row;
+* the block-dense engine: dense 128 x 128 block products over the
+  nonzero block-pair stream, by hand-written CUDA pair-matmul kernels
+  (``csrc/pair_matmul.cu``).
+
+Computes in float64 (or float32) natively.  ``python -m mh_spgemm_torch``
+is the benchmark CLI.
 
 The package imports torch, numpy and scipy only.  Its entry points run on
 the card unless the caller passes ``device="cpu"``, where every kernel
@@ -18,7 +26,9 @@ from .csr import CSR, DeviceCSR
 from .errors import (DeviceError, MatrixFormatError, ShapeMismatchError,
                      SpGEMMError, VerificationError)
 from .io.mmio import extract_matrix_name, read_mtx, write_mtx
-from .pipeline import spgemm_bucketed, spgemm_chunked, spgemm_host
+from .pipeline import (choose_engine, prepare_blockdense_state,
+                       spgemm_blockdense, spgemm_bucketed, spgemm_chunked,
+                       spgemm_host)
 from .timing import Timing, gflops
 
 __version__ = "0.1.0"
@@ -26,6 +36,7 @@ __version__ = "0.1.0"
 __all__ = [
     "CSR", "DeviceCSR", "SpGEMMConfig", "DEFAULT_CONFIG",
     "spgemm_bucketed", "spgemm_chunked", "spgemm_host",
+    "spgemm_blockdense", "prepare_blockdense_state", "choose_engine",
     "oracle_spgemm", "timed_oracle_spgemm", "verify",
     "Timing", "gflops",
     "read_mtx", "write_mtx", "extract_matrix_name",

@@ -73,6 +73,36 @@ def timed_oracle_spgemm(A: CSR, B: CSR) -> Tuple[CSR, float]:
     return oracle_spgemm(A, B), ms
 
 
+def torch_spgemm(A: CSR, B: CSR) -> Tuple[CSR, float]:
+    """An independent engine for ``--torch``: torch's sparse-CSR product
+    on the CPU, timed after one warm-up call.  Returns (C with ascending
+    columns per row, wall ms of the product).  torch prunes exact
+    cancellations as scipy does, so differential checks go through
+    :func:`oracle_spgemm`; this is a timing yardstick."""
+    import warnings
+    warnings.filterwarnings(
+        "ignore", message=".*[Ss]parse.*", category=UserWarning)
+    a = torch.sparse_csr_tensor(
+        torch.from_numpy(A.ptr.astype(np.int64)),
+        torch.from_numpy(A.col.astype(np.int64)),
+        torch.from_numpy(A.val.astype(np.float64)), size=(A.M, A.N))
+    b = torch.sparse_csr_tensor(
+        torch.from_numpy(B.ptr.astype(np.int64)),
+        torch.from_numpy(B.col.astype(np.int64)),
+        torch.from_numpy(B.val.astype(np.float64)), size=(B.M, B.N))
+    _ = a @ b                                   # first-call set-up
+    t0 = time.perf_counter()
+    c = a @ b
+    ms = (time.perf_counter() - t0) * 1e3
+    ptr = c.crow_indices().numpy().astype(np.int64)
+    col = c.col_indices().numpy().astype(np.int64)
+    val = c.values().numpy()
+    rows = np.repeat(np.arange(A.M, dtype=np.int64), np.diff(ptr))
+    order = np.lexsort((col, rows))
+    return CSR(M=A.M, N=B.N, ptr=ptr.astype(np.int32),
+               col=col[order].astype(np.int32), val=val[order]), ms
+
+
 _DIG_MULT = 0x9E3779B1
 
 

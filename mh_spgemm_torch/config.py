@@ -1,8 +1,9 @@
 """Configuration of the PyTorch port.
 
 ``SpGEMMConfig`` keeps the JAX package's field names and defaults, so a
-config written for one package reads the same in the other.  This slice
-runs only the bucketed engine with precomputed slot arrays;
+config written for one package reads the same in the other.  The port
+runs the bucketed engine with precomputed slot arrays, the block-dense
+engine, and ``mode="auto"`` choosing between them;
 :func:`check_supported` resolves every setting to what the port can run
 and raises on settings whose kernels or engines are not ported yet,
 naming the ROADMAP item that ports them.
@@ -58,10 +59,8 @@ class SpGEMMConfig:
 
 DEFAULT_CONFIG = SpGEMMConfig()
 
+_MODES = ("auto", "bucketed", "blockdense")
 _MODE_ITEMS = {
-    "auto": "ROADMAP Queue 1 item 8 (block-dense engine and auto routing)",
-    "blockdense": "ROADMAP Queue 1 item 8 (block-dense engine and auto "
-                  "routing)",
     "masked": "ROADMAP Queue 1 item 9 (masked and ESC engines)",
     "esc": "ROADMAP Queue 1 item 9 (masked and ESC engines)",
 }
@@ -70,21 +69,21 @@ _KERNEL_ITEMS = {
     "dma_fill": "ROADMAP Queue 2 item 3 (ragged_fill, the fill frontend)",
     "planned": "ROADMAP Queue 2 items 4-5 (pgather and proute, the planned "
                "frontend)",
-    "ozaki": "ROADMAP Queue 2 item 7 (pair_matmul_f64_ozaki, block-dense "
-             "f64)",
 }
 # TPU-only transport devices: the card has native f64 and cheap gathers
 _TPU_ONLY = ("df32", "wide_gather", "group_gather")
 
 
 def check_supported(config: SpGEMMConfig) -> str:
-    """Validate ``config`` for this slice and return the resolved tail
+    """Validate ``config`` and return the bucketed engine's resolved tail
     route: ``"kernel"`` (esc_tail_flat for pow2 classes, the default) or
-    ``"sort"`` (the sort tail in torch ops, ``esc_tail="off"``).  Raises
+    ``"sort"`` (the sort tail in torch ops, ``esc_tail="off"``).
+    ``ozaki`` "auto" and "on" send block-dense f64 through the native-f64
+    pair kernel, "off" through the gather + batched-matmul route.  Raises
     ``NotImplementedError`` naming the ROADMAP item for settings the
     port does not run yet."""
     config.vdtype                               # validates value_dtype
-    if config.mode != "bucketed":
+    if config.mode not in _MODES:
         if config.mode in _MODE_ITEMS:
             raise NotImplementedError(
                 f"mode={config.mode!r} is not ported yet: "
@@ -97,6 +96,12 @@ def check_supported(config: SpGEMMConfig) -> str:
                 f"{name}={v!r}: its kernel is not ported yet: {item}")
         if v not in ("auto", "off"):
             raise ValueError(f"unknown {name} setting {v!r}")
+    if config.ozaki == "interpret":
+        raise NotImplementedError(
+            "ozaki='interpret' is the Pallas interpreter of the JAX "
+            "package; in the port CPU tensors take the plain version")
+    if config.ozaki not in ("auto", "on", "off"):
+        raise ValueError(f"unknown ozaki setting {config.ozaki!r}")
     for name in _TPU_ONLY:
         v = getattr(config, name)
         if v == "on":

@@ -48,6 +48,13 @@ _CLASS_MERGE_NS = 1e6
 # planner's consolidation never pushes a class across it even with the
 # fill off, so it shapes the plans (TPU VMEM budget, not an H100 limit).
 _FILL_WORDS_CAP = 3 << 18
+# Engine-routing constants of estimate_cost_s, copied from the JAX package
+# so mode="auto" picks the same engine.  All are TPU v5e measurements, not
+# yet measured on the H100: ns per slot of a gather-frontend class (the
+# JAX default of MHSPGEMM_GATHER_NS, which the port does not read), and
+# the fill frontend's shortest worthwhile span in i32 words.
+_GATHER_NS_PER_SLOT = 30.0
+_FILL_MIN_SPAN_WORDS = 16
 
 
 class SlabOverflowError(ValueError):
@@ -99,9 +106,75 @@ class BucketPlan:
     tail_slots: Dict[str, int] = dataclasses.field(
         default_factory=lambda: {"direct": 0, "kernel": 0, "sort": 0})
 
+    def stats(self) -> dict:
+        """Occupancy and padding counters, with the JAX package's keys
+        (every class runs the precomputed-slot frontend here)."""
+        area = sum(c.W * c.rb * c.nchunks for c in self.classes)
+        return {
+            "engine": "bucketed",
+            "intprod": self.intprod,
+            "area_slots": area,
+            "padding_ratio": round(area / max(1, self.intprod), 3),
+            "nnz_c": self.nnz_c,
+            "classes": [
+                {"W": c.W, "chunks": c.nchunks, "rows_per_chunk": c.rb,
+                 "rows": int((c.rows_g >= 0).sum()),
+                 "entry_cap": c.eb, "hold_passes": c.hold_passes,
+                 "seg_passes": c.seg_passes, "fill": False, "G": 1,
+                 "frontend": "pre"}
+                for c in self.classes
+            ],
+        }
+
 
 def _log2_bound(x: int) -> int:
     return max(1, int(x - 1).bit_length()) if x > 1 else 0
+
+
+def _width_class(p: np.ndarray, min_width: int) -> np.ndarray:
+    """Row width class per product count, as the cost model sees it:
+    powers of two plus 1.5x intermediates (8, 12, 16, 24, 32, ...)."""
+    if p.size == 0:
+        return p.astype(np.int64)
+    pow2 = 2 ** np.ceil(np.log2(p)).astype(np.int64)
+    half = (3 * pow2) // 4                      # 1.5 * previous pow2
+    return np.maximum(min_width, np.where(p <= half, half, pow2))
+
+
+def estimate_cost_s(a_ptr: np.ndarray, a_col: np.ndarray,
+                    b_ptr: np.ndarray, min_width: int = 8,
+                    vwords: int = 2) -> float:
+    """Host estimate of the bucketed engine's warm time in seconds (no
+    plan built), the bucketed side of ``pipeline.choose_engine``: slots
+    per width class at a per-slot cost, plus 30 % for extraction.  The
+    per-slot costs are the JAX package's TPU v5e figures (10 ns for a
+    fill class, ``_GATHER_NS_PER_SLOT`` + 5 ns otherwise), not yet
+    measured on the H100.  On the card no class is a fill class: the
+    fill frontend is not ported, and the JAX package gates it on the
+    TPU."""
+    blens = np.diff(b_ptr).astype(np.int64)
+    p_ent = blens[a_col]
+    cs = np.concatenate([[0], np.cumsum(p_ent)])
+    p_row = cs[a_ptr[1:]] - cs[a_ptr[:-1]]
+    active = p_row > 0
+    if not active.any():
+        return 0.0
+    p = p_row[active]
+    w = _width_class(p, min_width)
+    vcs = np.concatenate([[0], np.cumsum(p_ent > 0)])
+    vc = (vcs[a_ptr[1:]] - vcs[a_ptr[:-1]])[active]
+    stride = 1 + vwords
+    total = 0.0
+    fill_possible = False
+    for W in np.unique(w):
+        sel = w == W
+        slots = int(W) * int(sel.sum())
+        avg_words = p[sel].sum() * stride / max(1, vc[sel].sum())
+        fill = (fill_possible and W <= _FILL_WORDS_CAP // stride
+                and avg_words >= _FILL_MIN_SPAN_WORDS)
+        per_slot = 10.0 if fill else _GATHER_NS_PER_SLOT + 5.0
+        total += slots * per_slot * 1e-9
+    return total * 1.3
 
 
 def _attach_slot_arrays(c: ClassPlan) -> None:

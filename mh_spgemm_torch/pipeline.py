@@ -1,9 +1,11 @@
 """Pipeline drivers of the PyTorch port: the bucketed engine end to end
 (``spgemm_bucketed``), its row-chunked fallback for product streams past
-int32 indexing (``spgemm_chunked``), and the CSR-in / CSR-out
-``spgemm_host``.
+int32 indexing (``spgemm_chunked``), the block-dense engine
+(``spgemm_blockdense``), the per-matrix engine choice of ``mode="auto"``
+(``choose_engine``), and the CSR-in / CSR-out ``spgemm_host``.
 
-Every entry point runs on the card (``device=None`` means ``"cuda"``)
+Every entry point runs on the card (``device=None`` means ``"cuda"``,
+and a given ``state`` keeps the device it was prepared for)
 unless the caller names another device, and raises when CUDA is
 absent; it never carries on on the CPU by itself.
 """
@@ -19,10 +21,35 @@ import torch
 from .config import DEFAULT_CONFIG, SpGEMMConfig, check_supported
 from .csr import CSR, DeviceCSR
 from .errors import DeviceError, ShapeMismatchError, SpGEMMError, require
+from .ops import blockdense as blockdense_ops
 from .ops import bucketed as bucketed_ops
 from .timing import PhaseTimer, Timing, device_fence
 
 _NP_DTYPES = {torch.float64: np.float64, torch.float32: np.float32}
+
+_FENCE_ON = True
+
+
+class no_fence:
+    """Context: the engines skip their end-of-call synchronize, so a
+    benchmark loop queues its calls back to back and synchronizes once
+    (``bench/driver.run_matrix``)."""
+
+    def __enter__(self):
+        global _FENCE_ON
+        self._prev = _FENCE_ON
+        _FENCE_ON = False
+        return self
+
+    def __exit__(self, *exc):
+        global _FENCE_ON
+        _FENCE_ON = self._prev
+        return False
+
+
+def _fence(device) -> None:
+    if _FENCE_ON:
+        device_fence(device)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -114,7 +141,7 @@ def spgemm_bucketed(A: CSR, B: CSR,
                 plan, state.a_val, state.b_col, state.b_val,
                 route=state.route)
         with PhaseTimer.phase(timing, "numeric"):
-            device_fence(dev)
+            _fence(dev)
         return DeviceCSR(M=A.M, N=B.N, ptr=cptr, col=ccol, val=cval,
                          nnz_true=plan.nnz_c), state
 
@@ -122,13 +149,13 @@ def spgemm_bucketed(A: CSR, B: CSR,
         main_out = bucketed_ops.run_bucketed(
             plan, state.a_val, state.b_col, state.b_val, route=state.route)
         if config.profile:
-            device_fence(dev)          # split main vs extraction exactly
+            _fence(dev)                # split main vs extraction exactly
 
     with PhaseTimer.phase(timing, "malloc_c_col_val"):
         cptr, ccol, cval = bucketed_ops.finish_bucketed(plan, main_out)
 
     with PhaseTimer.phase(timing, "numeric"):
-        device_fence(dev)
+        _fence(dev)
     return DeviceCSR(M=A.M, N=B.N, ptr=cptr, col=ccol, val=cval,
                      nnz_true=plan.nnz_c), state
 
@@ -196,16 +223,156 @@ def spgemm_chunked(A: CSR, B: CSR,
                     np.zeros(0, _NP_DTYPES[config.vdtype])))
 
 
+@dataclasses.dataclass
+class BlockDenseState:
+    """Cached per-(A, B) state of the block-dense engine: the plan, which
+    also keeps the densified operands once the first call has made
+    them."""
+
+    plan: blockdense_ops.BlockPlan
+    device: torch.device
+    vdtype: torch.dtype
+
+
+def _blockdense_route(config: SpGEMMConfig) -> str:
+    """``"kernel"`` when the block-dense values ride the streaming pair
+    kernels (always in f32, and in f64 unless ``ozaki="off"``), else
+    ``"bmm"``.  Native f64 needs no error certificate, so ``"kernel"``
+    is the JAX package's certified Ozaki route in every routing
+    decision, on every device."""
+    if config.vdtype == torch.float32 or config.ozaki != "off":
+        return "kernel"
+    return "bmm"
+
+
+def _pair_budget(config: SpGEMMConfig) -> int:
+    """Block-pair budget: the streaming pair kernels keep no
+    ``[npairs, 128, 128]`` intermediate in device memory, so they take a
+    much longer stream than the gather + batched-matmul route, which
+    materialises it."""
+    return 1 << 18 if _blockdense_route(config) == "kernel" else 16384
+
+
+def prepare_blockdense_state(A: CSR, B: CSR,
+                             config: SpGEMMConfig = DEFAULT_CONFIG,
+                             device=None) -> BlockDenseState:
+    """Host planning for the block-dense engine (the ``state=None``
+    branch of :func:`spgemm_blockdense`)."""
+    check_supported(config)
+    dev = resolve_device(device)
+    plan = blockdense_ops.plan_blockdense(
+        A.ptr, A.col, B.ptr, B.col, A.M, A.N, B.N,
+        max_pairs=_pair_budget(config))
+    require(plan is not None, SpGEMMError,
+            "block-dense plan infeasible (empty, a pair stream over the "
+            "budget, or a strip slab past int32); use mode='bucketed'")
+    plan.route = _blockdense_route(config)
+    return BlockDenseState(plan=plan, device=dev, vdtype=config.vdtype)
+
+
+def spgemm_blockdense(A: CSR, B: CSR,
+                      config: SpGEMMConfig = DEFAULT_CONFIG,
+                      timing: Optional[Timing] = None,
+                      state: Optional[BlockDenseState] = None,
+                      device=None) -> tuple[DeviceCSR,
+                                            Optional[BlockDenseState]]:
+    """Block-dense SpGEMM, C = A @ B as dense 128 x 128 block products
+    over the nonzero block-pair stream (ops/blockdense.py).  Returns (C
+    on the device, reusable state); an empty operand gives the empty C
+    and the state it was given.  The first call per (A, B) plans,
+    densifies and fetches nnz(C) per row once; a call with the returned
+    ``state`` runs with no host sync."""
+    require(A.N == B.M, ShapeMismatchError, "A.N must equal B.M")
+    timing = timing if timing is not None else Timing()
+    check_supported(config)
+
+    if A.nnz == 0 or B.nnz == 0:
+        dev = state.device if state is not None else resolve_device(device)
+        C = DeviceCSR(M=A.M, N=B.N,
+                      ptr=torch.zeros(A.M + 1, dtype=torch.int32,
+                                      device=dev),
+                      col=torch.zeros(0, dtype=torch.int32, device=dev),
+                      val=torch.zeros(0, dtype=config.vdtype, device=dev),
+                      nnz_true=0)
+        return C, state
+
+    with PhaseTimer.phase(timing, "symbolic_binning"):
+        if state is None:
+            state = prepare_blockdense_state(A, B, config, device)
+        elif device is not None:
+            require(resolve_device(device) == state.device, SpGEMMError,
+                    "state was prepared for another device")
+        require(state.vdtype == config.vdtype
+                and state.plan.route == _blockdense_route(config),
+                SpGEMMError,
+                "state was prepared under another value_dtype or ozaki "
+                "setting")
+        plan = state.plan
+    dev = state.device
+
+    with PhaseTimer.phase(timing, "mem_alloc"):
+        a_val = b_val = None
+        if plan.dev is None or "a_dense" not in plan.dev:
+            blockdense_ops.upload_blockplan(plan, dev)
+            np_dt = _NP_DTYPES[config.vdtype]
+            a_val = torch.from_numpy(A.val.astype(np_dt)).to(dev)
+            b_val = torch.from_numpy(B.val.astype(np_dt)).to(dev)
+
+    with PhaseTimer.phase(timing, "calculate_c_nnz"):
+        main_out = blockdense_ops.run_blockdense(plan, a_val, b_val)
+        if config.profile:
+            _fence(dev)                # split main vs extraction exactly
+
+    with PhaseTimer.phase(timing, "malloc_c_col_val"):
+        cptr, ccol, cval = blockdense_ops.finish_blockdense(plan, main_out)
+
+    with PhaseTimer.phase(timing, "numeric"):
+        _fence(dev)
+    return DeviceCSR(M=A.M, N=B.N, ptr=cptr, col=ccol, val=cval,
+                     nnz_true=plan.nnz_c), state
+
+
+def choose_engine(A: CSR, B: CSR, config: SpGEMMConfig) -> str:
+    """``"blockdense"`` or ``"bucketed"`` for C = A @ B, by the JAX
+    package's host cost models (TPU v5e constants, not yet measured on
+    the H100): the bucketed estimate (``ops/bucketed.estimate_cost_s``)
+    against a sampled block-dense estimate, and, only when that is
+    within 3x, against the exact block-dense plan's cost."""
+    check_supported(config)
+    bkt_s = bucketed_ops.estimate_cost_s(
+        A.ptr, A.col, B.ptr, min_width=config.min_bucket_width,
+        vwords=_vwords(config))
+    oz = _blockdense_route(config) == "kernel"
+    est = blockdense_ops.estimate_blockdense_cost(
+        A.ptr, A.col, B.ptr, B.col, A.M, A.N, config.vdtype, ozaki=oz)
+    if est > 3.0 * bkt_s:
+        return "bucketed"
+    plan = blockdense_ops.plan_blockdense(
+        A.ptr, A.col, B.ptr, B.col, A.M, A.N, B.N,
+        max_pairs=_pair_budget(config))
+    cost = blockdense_ops.blockdense_cost(plan, config.vdtype, ozaki=oz)
+    return "blockdense" if cost < bkt_s else "bucketed"
+
+
 def spgemm_host(A: CSR, B: Optional[CSR] = None,
                 config: SpGEMMConfig = DEFAULT_CONFIG,
                 timing: Optional[Timing] = None, device=None) -> CSR:
     """CSR in, CSR out.  ``B=None`` computes C = A @ A, or A @ A^T under
-    ``config.aat``.  Falls back to :func:`spgemm_chunked` when the slab
-    needs more than int32 indexing."""
+    ``config.aat``.  ``mode="auto"`` picks the engine per matrix
+    (:func:`choose_engine`).  The bucketed engine falls back to
+    :func:`spgemm_chunked` when the slab needs more than int32
+    indexing."""
     check_supported(config)
     dev = resolve_device(device)
     if B is None:
         B = A.transpose() if (config.aat and not A.is_symmetric) else A
+    mode = config.mode
+    if mode == "auto":
+        mode = choose_engine(A, B, config)
+    if mode == "blockdense":
+        C, _ = spgemm_blockdense(A, B, config=config, timing=timing,
+                                 device=dev)
+        return C.host()
     try:
         C, _ = spgemm_bucketed(A, B, config=config, timing=timing,
                                device=dev)

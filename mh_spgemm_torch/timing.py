@@ -1,6 +1,7 @@
 """Per-phase timing: the seven phase fields of the reference's ``Timing``
-(``total`` excludes ``form_mask_matrix_b``), a context helper that adds
-a block's wall time to one field, and ``gflops``.
+(``total`` excludes ``form_mask_matrix_b``; sums and averages over
+iterations, ``print_step_time``), a context helper that adds a block's
+wall time to one field, and ``gflops``.
 
 A phase's wall time means the device's time only when the block ends
 in a device fence (:func:`device_fence`, ``torch.cuda.synchronize``):
@@ -31,11 +32,35 @@ class Timing:
     numeric_binning: float = 0.0
     numeric: float = 0.0
 
+    def __iadd__(self, other: "Timing") -> "Timing":
+        for f in _PHASES:
+            setattr(self, f, getattr(self, f) + getattr(other, f))
+        return self
+
+    def __itruediv__(self, k: float) -> "Timing":
+        for f in _PHASES:
+            setattr(self, f, getattr(self, f) / k)
+        return self
+
     def total(self) -> float:
         """Total SpGEMM time in ms; the mask build is excluded."""
         return (self.mem_alloc + self.symbolic_binning +
                 self.calculate_c_nnz + self.malloc_c_col_val +
                 self.numeric_binning + self.numeric)
+
+    def print_step_time(self) -> None:
+        print(f"mem_alloc          = {self.mem_alloc:9.3f} ms")
+        print(f"Form_mask_matrix_B = {self.form_mask_matrix_b:9.3f} ms")
+        print(f"symbolic_binning   = {self.symbolic_binning:9.3f} ms")
+        print(f"Calculate_C_nnz    = {self.calculate_c_nnz:9.3f} ms")
+        print(f"Malloc_C_col_val   = {self.malloc_c_col_val:9.3f} ms")
+        print(f"numeric_binning    = {self.numeric_binning:9.3f} ms")
+        print(f"Numeric            = {self.numeric:9.3f} ms")
+
+    def as_dict(self) -> dict:
+        d = {f: getattr(self, f) for f in _PHASES}
+        d["total"] = self.total()
+        return d
 
 
 class PhaseTimer:

@@ -154,8 +154,9 @@ def test_from_arrays_and_equals():
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter imports every module of the port and
-    chip_smoke.py, runs one CPU SpGEMM, and has loaded neither JAX nor the
+    """A fresh interpreter imports every module of the port (the CLI
+    driver and the block-dense engine by name too) and chip_smoke.py,
+    runs one CPU SpGEMM on each engine, and has loaded neither JAX nor the
     JAX package."""
     code = "\n".join([
         "import importlib, pkgutil, sys",
@@ -163,10 +164,14 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(mt.__path__, 'mh_spgemm_torch.'):",
         "    importlib.import_module(m.name)",
         "import chip_smoke",
+        "import mh_spgemm_torch.bench.driver, mh_spgemm_torch.ops.blockdense",
         "from mh_spgemm_torch.bench import gen",
         "A = gen.powerlaw(200, avg_nnz=4, seed=1)",
         "C = mt.spgemm_host(A, device='cpu')",
         "assert C.equals(mt.oracle_spgemm(A, A), tol=1e-9)",
+        "cfg = mt.SpGEMMConfig(mode='blockdense')",
+        "D = mt.spgemm_host(A, config=cfg, device='cpu')",
+        "assert D.equals(C, tol=1e-9)",
         "bad = [m for m in sys.modules",
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'mh_spgemm_tpu')]",
         "assert not bad, bad",

@@ -11,7 +11,8 @@ Tolerances: ptr and col exact; values within ``CSR.equals`` tol 1e-9
 in f64; 1e-4 in f32, where the two tails sum in different orders.
 
 Also here: every setting the port does not run yet raises and names its
-ROADMAP item, and ``esc_tail="off"`` routes every class through the sort
+ROADMAP item, the modes and ``ozaki`` settings it does run route as
+configured, and ``esc_tail="off"`` routes every class through the sort
 tail.
 """
 
@@ -25,8 +26,9 @@ from mh_spgemm_torch import (CSR, SpGEMMConfig, oracle_spgemm,
                              spgemm_chunked, spgemm_host)
 from mh_spgemm_torch.bench import gen
 from mh_spgemm_torch.errors import DeviceError
+from mh_spgemm_torch.ops import blockdense as tbd
 from mh_spgemm_torch.ops import esc_tail as et
-from mh_spgemm_torch.pipeline import spgemm_bucketed
+from mh_spgemm_torch.pipeline import spgemm_blockdense, spgemm_bucketed
 
 MATRICES = {
     "tiny_fixture": lambda: gen.tiny_fixture(),
@@ -130,19 +132,17 @@ def test_default_device_needs_cuda():
         spgemm_bucketed(A, A)
     with pytest.raises(DeviceError):
         spgemm_chunked(A, A)
+    with pytest.raises(DeviceError):
+        spgemm_blockdense(A, A)
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("mode", "auto", "Queue 1 item 8"),
-    ("mode", "blockdense", "Queue 1 item 8"),
     ("mode", "masked", "Queue 1 item 9"),
     ("mode", "esc", "Queue 1 item 9"),
     ("dma_fill", "on", "Queue 2 item 3"),
     ("dma_fill", "interpret", "Queue 2 item 3"),
     ("planned", "on", "Queue 2 items 4-5"),
     ("planned", "interpret", "Queue 2 items 4-5"),
-    ("ozaki", "on", "Queue 2 item 7"),
-    ("ozaki", "interpret", "Queue 2 item 7"),
     ("df32", "on", "ground rules"),
     ("wide_gather", "on", "ground rules"),
     ("group_gather", "on", "ground rules"),
@@ -156,6 +156,54 @@ def test_unported_settings_raise(field, value, item):
         with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
             call()
         assert item in str(exc.value)
+
+
+@pytest.mark.parametrize("mode", ["auto", "blockdense", "bucketed"])
+@pytest.mark.parametrize("ozaki", ["auto", "on", "off"])
+def test_ported_modes_run(mode, ozaki):
+    """Every mode the port runs, under every ozaki setting it accepts,
+    gives the oracle's C (auto picks per matrix; the banded input keeps
+    the block-dense engine busy with several pairs per C block)."""
+    A = gen.banded(300, band=12, nnz_per_row=6, seed=5)
+    C = spgemm_host(A, config=SpGEMMConfig(mode=mode, ozaki=ozaki),
+                    device="cpu")
+    assert C.equals(oracle_spgemm(A, A), tol=1e-9)
+
+
+def test_ozaki_interpret_raises():
+    """The Pallas interpreter has no counterpart in the port: CPU tensors
+    already take the plain versions."""
+    A = gen.tiny_fixture()
+    cfg = SpGEMMConfig(mode="blockdense", ozaki="interpret")
+    for call in (lambda: spgemm_host(A, config=cfg, device="cpu"),
+                 lambda: spgemm_blockdense(A, A, config=cfg, device="cpu")):
+        with pytest.raises(NotImplementedError, match="interpret"):
+            call()
+
+
+@pytest.mark.parametrize("ozaki,route", [("auto", "kernel"),
+                                         ("on", "kernel"),
+                                         ("off", "bmm")])
+def test_ozaki_routing(ozaki, route, monkeypatch):
+    """f64 block-dense values take pair_matmul_f64 unless ozaki="off",
+    which takes the gather + bmm route; the wrapper's launch count does
+    not move on CPU tensors either way."""
+    calls = []
+    wrapped = tbd.pair_matmul_f64
+
+    def spy(*a, **k):
+        calls.append(1)
+        return wrapped(*a, **k)
+
+    monkeypatch.setattr(tbd, "pair_matmul_f64", spy)
+    A = gen.banded(300, band=12, nnz_per_row=6, seed=5)
+    before = wrapped.launches
+    C, state = spgemm_blockdense(A, A, config=SpGEMMConfig(ozaki=ozaki),
+                                 device="cpu")
+    assert state.plan.route == route
+    assert bool(calls) == (route == "kernel")
+    assert wrapped.launches == before
+    assert C.host().equals(oracle_spgemm(A, A), tol=1e-9)
 
 
 @pytest.mark.parametrize("field", ["dma_fill", "planned", "ozaki", "df32",
