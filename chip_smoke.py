@@ -4,48 +4,71 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit and the torch version.
-2. Builds both CUDA sources (``mh_spgemm_torch/csrc/esc_tail.cu`` and
-   ``pair_matmul.cu``) with nvcc for sm_90a into ``build/``, one nvcc
-   per source, started together; prints the build times and the
-   registers and spills ptxas reports.
+2. Builds the three CUDA sources (``mh_spgemm_torch/csrc/esc_tail.cu``,
+   ``pair_matmul.cu`` and ``ragged_fill.cu``) with nvcc for sm_90a into
+   ``build/``, one nvcc per source, started together; prints the build
+   times and the registers and spills ptxas reports.
 3. Kernel phase: ``esc_tail_flat`` against its plain PyTorch version on
    the card for w2 in {2, 8, 256, 2048, 8192, 32768, 65536}, f64 and
    f32, on duplicate-heavy, empty and all-same-key segments (keys and
    counts exact, values within 1e-9 (f64) / 1e-4 (f32)
-   absolute-or-relative); ``pair_matmul_f64`` and ``pair_matmul_f32``
-   against their plain versions on a synthetic stream (segments of 1 to
-   64 pairs, dead pairs, C blocks with no pair) and on pdb1HYS's own
-   pair stream (f64 within 1e-9 absolute-or-relative; f32 within 1e-4 of
-   the magnitude of the summed terms, the same pair product over |a| and
-   |b|: two f32 summation orders of up to 8192 random-sign terms differ
-   by more than 1e-4 absolute where the sum cancels to near zero);
-   ``block_gather`` against
-   ``index_select`` for f64, f32 and int32 (exact).
+   absolute-or-relative); the slab form ``esc_tail`` the same way over
+   the same widths, with row counts under w2 (NaN values and random keys
+   past them), empty rows and full rows; ``ragged_fill`` against its
+   plain version for 1, 2 and 3 planes at window rows 16 and 128 (the
+   largest), on runs that cross the half-window grid, full-window runs
+   and a zero-length run, compared exactly on the words the runs cover;
+   ``pair_matmul_f64`` and ``pair_matmul_f32`` against their plain
+   versions on a synthetic stream (segments of 1 to 64 pairs, dead
+   pairs, C blocks with no pair) and on pdb1HYS's own pair stream (f64
+   within 1e-9 absolute-or-relative; f32 within 1e-4 of the magnitude of
+   the summed terms, the same pair product over |a| and |b|: two f32
+   summation orders of up to 8192 random-sign terms differ by more than
+   1e-4 absolute where the sum cancels to near zero); ``block_gather``
+   against ``index_select`` for f64, f32 and int32 (exact).
 4. Bucketed phase: ``spgemm_host`` and ``spgemm_bucketed`` (one cold
    call, then warm calls reusing the state) under the default config on
    the full-size stand-ins scircuit, cage12 and webbase-1M; every C must
-   equal the scipy oracle within 1e-9, and the tail kernel's launch
-   count, set to 0 before this phase, must have grown.  Prints per
-   matrix the engine ``choose_engine`` picks, the warm ms per SpGEMM
-   (CUDA events), GFLOPS = 2 * intprod / ms, nnz(C), the class widths and
-   the slots each tail took; then each stage of a warm call timed alone.
-5. Block-dense phase on the full-size stand-ins pdb1HYS and pwtk:
+   equal the scipy oracle within 1e-9, the launch counts, set to 0 before
+   this phase, must have grown for the tail kernel and for
+   ``ragged_fill`` (cage12's windowed extraction).  Prints per matrix the
+   engine ``choose_engine`` picks, the warm ms per SpGEMM (CUDA events),
+   GFLOPS = 2 * intprod / ms, nnz(C), the class widths and frontends,
+   whether the extraction is windowed and the slots each tail took; then
+   each stage of a warm call timed alone, the extraction both windowed
+   and by the gather where the plan has the windowed copy.
+5. Forced-fill phase on cage12 (``dma_fill="on"``): its W=256 class must
+   run the fill frontend, C must equal the oracle, and the
+   ``ragged_fill`` and ``esc_tail`` launch counts, set to 0 before, must
+   have grown; prints its warm ms beside the default path's, in turns.
+6. Block-dense phase on the full-size stand-ins pdb1HYS and pwtk:
    ``spgemm_blockdense`` cold, warm calls reusing the state, and
    ``spgemm_host`` under ``mode="auto"``; every C must equal the oracle
-   within 1e-9, and both pair kernels' launch counts, set to 0 before
-   this phase, must have grown.  Prints the engine ``choose_engine``
-   picks, warm ms, GFLOPS, nnz(C), pairs, C blocks, peak memory, and each
-   stage timed alone (densify, value pair matmul, pattern pair matmul,
-   strips, extraction).
-6. Kernel timing: ``esc_tail_flat`` on cage12's W=256 class, and the
-   pair matmuls and ``block_gather`` at pwtk's shapes (CUDA events,
-   warm, many launches), each beside its plain version, one PyTorch call
-   computing the same function (``torch.sort``, ``torch.bmm`` of the
-   pre-gathered pairs, ``torch.index_select``) and its bound.
-7. CLI phase: ``python -m mh_spgemm_torch pdb1HYS --check --stats --json
+   within 1e-9, and the pair kernels' and ``ragged_fill``'s launch
+   counts (the windowed extraction), set to 0 before this phase, must
+   have grown.  Prints the engine ``choose_engine`` picks, warm ms,
+   GFLOPS, nnz(C), pairs, C blocks, peak memory, and each stage timed
+   alone (densify, value pair matmul, pattern pair matmul, strips, and
+   the extraction windowed and by the gather).
+7. Masked phase: ``spgemm_masked`` cold, then warm, on scircuit and
+   cage12 at full size; C must equal the oracle within 1e-9, and
+   ``ragged_fill``, set to 0 before each matrix, must have run for both
+   (scircuit's tile fill, cage12's windowed extraction).  Prints warm
+   ms, GFLOPS, cold ms, the classes by frontend and their tile widths.
+8. Kernel timing (CUDA events, warm, many launches), each kernel beside
+   its plain version, one PyTorch call computing the same function and
+   its bound: ``esc_tail_flat`` on cage12's W=256 class (``torch.sort``),
+   ``esc_tail`` on cage12's forced-fill W=256 class (``torch.sort``),
+   ``ragged_fill`` at cage12's windowed-extraction shapes (one
+   ``index_select`` over the same word indices), and the pair matmuls
+   and ``block_gather`` at pwtk's shapes (``torch.bmm`` of the
+   pre-gathered pairs, ``torch.index_select``).
+9. CLI phase: ``python -m mh_spgemm_torch pdb1HYS --check --stats --json
    --iters 3`` in a subprocess must exit 0, pass its check on the
-   block-dense engine, and print nothing of JAX.
-8. Prints ``{"kernels": [...]}``, the card's name and power limit, and,
+   block-dense engine, and print nothing of JAX; ``python -m
+   mh_spgemm_torch scircuit --mode masked --check --iters 2`` must exit
+   0 and pass.
+10. Prints ``{"kernels": [...]}``, the card's name and power limit, and,
    as the last line, ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds.  Any failed check raises, so the script
@@ -71,7 +94,9 @@ FP32_FLOPS = 67e12              # H100 SXM data sheet, FP32 (non-tensor)
 W2S = (2, 8, 256, 2048, 8192, 32768, 65536)
 MATRICES = ("scircuit", "cage12", "webbase-1M")
 BD_MATRICES = ("pdb1HYS", "pwtk")
-SOURCES = ("esc_tail", "pair_matmul")
+SOURCES = ("esc_tail", "pair_matmul", "ragged_fill")
+MASKED_MATRICES = ("scircuit", "cage12")
+FILL_MATRIX = "cage12"
 WARM_CALLS = 20
 BD_WARM_CALLS = 10
 I32_MAX = 2**31 - 1
@@ -138,17 +163,103 @@ def kernel_phase(torch, et, dev) -> dict:
     return errs
 
 
-def main_path_phase(torch, mt, et, dev) -> dict:
-    """Drive the main path on every stand-in; the kernel's launch count
-    is set to 0 just before and read just after.  Returns the states."""
+def slab_tail_phase(torch, et, dev) -> dict:
+    """The slab form against its plain version: rows with counts under
+    w2 (NaN values and random keys past them), an empty and a full row.
+    Keys and counts exact, values within the flat tail's tolerances."""
+    errs = {torch.float64: 0.0, torch.float32: 0.0}
+    tols = {torch.float64: 1e-9, torch.float32: 1e-4}
+    for dtype in (torch.float64, torch.float32):
+        for w2 in W2S:
+            rows = max(4, (1 << 20) // w2)
+            rng = np.random.default_rng(w2 + 1)
+            keys = rng.integers(0, max(2, w2 // 4), (rows, w2)).astype(
+                np.int32)
+            row_len = rng.integers(0, w2, rows).astype(np.int32)
+            row_len[0], row_len[1] = 0, w2
+            keys[1] = 7
+            vals = rng.standard_normal((rows, w2))
+            vals[np.arange(w2)[None, :] >= row_len[:, None]] = np.nan
+            k, rl = (torch.from_numpy(x).to(dev) for x in (keys, row_len))
+            v = torch.from_numpy(vals).to(dtype).to(dev)
+            oK, oV, cnt = et.esc_tail(k, v, rl, w2=w2)
+            torch.cuda.synchronize()
+            pK, pV, pc = et.esc_tail_plain(k, v, rl, w2=w2)
+            check(torch.equal(oK, pK), f"esc_tail keys differ at w2={w2}")
+            check(torch.equal(cnt, pc), f"esc_tail counts differ at w2={w2}")
+            err = (oV - pV).abs()
+            ok = err <= tols[dtype] * torch.clamp(pV.abs(), min=1.0)
+            check(bool(ok.all()), f"esc_tail values differ at w2={w2} "
+                  f"{dtype}: max abs err {float(err.max())}")
+            errs[dtype] = max(errs[dtype], float(err.max()))
+            print(f"kernel esc_tail w2={w2:6d} {str(dtype):14s} "
+                  f"rows={rows:7d} max_abs_err={float(err.max()):.3e} "
+                  f"exact={bool(torch.equal(oV, pV))} ok", flush=True)
+    return errs
+
+
+def fill_kernel_phase(torch, rf, bk, dev) -> int:
+    """ragged_fill against its plain version for 1, 2 and 3 planes at
+    window rows 16 and 128, exact on the covered words (the rest are
+    undefined).  Runs come from the planner's own grouping: full-window
+    runs, runs crossing the half-window grid, and one zero-length run
+    among the live ones."""
+    rng = np.random.default_rng(3)
+    err = 0
+    for nplanes in (1, 2, 3):
+        for wrows in (16, 128):
+            SW = wrows * 64
+            n = 4000
+            ln = rng.integers(0, SW // 4 + 1, n)
+            ln[:3] = [0, SW, SW - 1]
+            dst = np.cumsum(rng.integers(0, 50, n) + ln) - ln
+            out_slots = -(-int(dst[-1] + ln[-1]) // 128) * 128
+            src = rng.integers(0, 40 * SW, n)
+            live = ln > 0
+            wr, rn = bk._group_runs(src[live], dst[live], ln[live], wrows,
+                                    bk._FILL_EPG)
+            rn[0, 0, 2] = 0
+            rel = rn[:, :, 0].astype(np.int64) - 128
+            crossing = int(((rel // SW) != ((rel + rn[:, :, 2] - 1) // SW))
+                           [rn[:, :, 2] > 0].sum())
+            check(crossing > 0, "no run crosses the half-window grid")
+            pitch = (-(-(bk._FILL_BIAS_WORDS + 42 * SW) // 128) + wrows
+                     + rf.PAD_ROWS)
+            pairs = torch.from_numpy(rng.integers(
+                -2**31, 2**31 - 1, (nplanes * pitch, 128),
+                dtype=np.int64).astype(np.int32)).to(dev)
+            w, r = (torch.from_numpy(x[None]).to(dev) for x in (wr, rn))
+            kw = dict(out_rows=nplanes * out_slots // 128, nplanes=nplanes,
+                      src_stride_rows=pitch, dst_stride=out_slots)
+            got = rf.ragged_fill(w, r, pairs, **kw)
+            torch.cuda.synchronize()
+            want = rf.ragged_fill_plain(w, r, pairs, **kw)
+            cov = rf.ragged_fill_plain(w, r, torch.ones_like(pairs),
+                                       **kw) != 0
+            diff = int((got[cov].long() - want[cov].long()).abs().max())
+            check(diff == 0,
+                  f"ragged_fill differs: {nplanes} planes, wrows {wrows}")
+            err = max(err, diff)
+            print(f"kernel ragged_fill planes={nplanes} wrows={wrows:3d} "
+                  f"steps={wr.shape[0]} runs={int(wr[:, 1].sum())} "
+                  f"crossing={crossing} words={int(cov.sum())} "
+                  f"max_abs_err={diff} ok", flush=True)
+    return err
+
+
+def main_path_phase(torch, mt, et, rf, dev):
+    """Drive the main path on every stand-in; the tail kernels' and
+    ragged_fill's launch counts are set to 0 just before and read just
+    after.  Returns (states, oracles, matrices, launches)."""
     from mh_spgemm_torch.io.suites import load_matrix
     from mh_spgemm_torch.pipeline import spgemm_bucketed
-    kept = {}
-    et.esc_tail_flat.launches = 0
+    kept, refs, mats = {}, {}, {}
+    for fn in (et.esc_tail_flat, et.esc_tail, rf.ragged_fill):
+        fn.launches = 0
     for name in MATRICES:
         t0 = time.perf_counter()
-        A = load_matrix(name)
-        ref = mt.oracle_spgemm(A, A)
+        A = mats[name] = load_matrix(name)
+        ref = refs[name] = mt.oracle_spgemm(A, A)
         setup_s = time.perf_counter() - t0
         intprod = A.intprod(A)
         engine = mt.choose_engine(A, A, mt.SpGEMMConfig(mode="auto"))
@@ -176,57 +287,74 @@ def main_path_phase(torch, mt, et, dev) -> dict:
             "cold_ms": cold_ms, "setup_s": setup_s,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
             "widths": [c.W for c in plan.classes],
+            "frontends": [c.frontend for c in plan.classes],
+            "windowed_extraction": plan.ext is not None,
             "slots_per_call": per_call,
         }
         print("main " + json.dumps(row), flush=True)
         kept[name] = state
         del Cd, C, out
-    launches = et.esc_tail_flat.launches
-    check(launches > 0, "esc_tail_flat was not launched on the main path")
-    return kept, launches
+    launches = {fn.__name__: fn.launches
+                for fn in (et.esc_tail_flat, et.esc_tail, rf.ragged_fill)}
+    check(launches["esc_tail_flat"] > 0,
+          "esc_tail_flat was not launched on the main path")
+    check(kept[FILL_MATRIX].plan.ext is not None,
+          f"{FILL_MATRIX}'s extraction is not windowed")
+    check(launches["ragged_fill"] > 0,
+          "ragged_fill was not launched on the main path")
+    return kept, refs, mats, launches
 
 
-def breakdown_phase(bk, states: dict) -> None:
+def breakdown_phase(bk, states: dict) -> dict:
     """Device time of a warm call's three stages, each timed alone over
-    all classes: the frontend (gathers and product), the tails (the
-    kernel, plus the direct W = 1 path and the wide-sort tail) and the
-    static extraction."""
+    all classes: the frontends, the tails (the kernels, plus the direct
+    W = 1 path and the wide-sort tail) and the extraction, by the static
+    gather and, where the plan has it, by the windowed copy.  Returns
+    the extraction times per matrix."""
+    ext_ms = {}
     for name, state in states.items():
         plan = state.plan
-        ops = (state.a_val, state.b_col, state.b_val)
+        ops = (state.a_val, state.b_col, state.b_val, state.pairs)
         counts = {"direct": 0, "kernel": 0, "sort": 0}
 
         def front():
-            return [bk.expand_pre(ss, sa, *ops) for _, ss, sa in plan.dev]
+            return [bk.class_front(c, d, *ops)
+                    for c, d in zip(plan.classes, plan.dev)]
 
         fronts = front()
 
         def tails():
-            return [bk._flat_tail(K, p, v, W=c.W, rows=c.nchunks * c.rb,
-                                  seg_passes=c.seg_passes,
-                                  route=state.route, counts=counts)
-                    for c, (K, p, v) in zip(plan.classes, fronts)]
+            return [bk.class_tail(c, f, route=state.route, counts=counts)
+                    for c, f in zip(plan.classes, fronts)]
 
         slabs = tails()
-        ext_src, _ = plan.ext_static_dev
+        ext_src = bk.static_dev(plan)[0]
         row = {"matrix": name,
                "frontend_ms": cuda_ms(front, 10),
                "tail_ms": cuda_ms(tails, 10),
-               "extract_ms": cuda_ms(
+               "extract_gather_ms": cuda_ms(
                    lambda: bk.bucketed_extract_static(
                        slabs, ext_src, nnz_c=plan.nnz_c), 10)}
+        if plan.ext is not None:
+            row["extract_windowed_ms"] = cuda_ms(
+                lambda: bk.bucketed_extract_windowed(
+                    slabs, plan.ext, nnz_cap=plan.nnz_cap,
+                    nnz_c=plan.nnz_c), 10)
+        ext_ms[name] = row
         print("stages " + json.dumps(row), flush=True)
+        del fronts, slabs
+    return ext_ms
 
 
 def time_kernel(torch, et, bk, state) -> dict:
     plan = state.plan
-    i = max(range(len(plan.classes)),
+    i = max((j for j, c in enumerate(plan.classes) if c.pre and c.W > 1),
             key=lambda j: plan.classes[j].W * plan.classes[j].rb
-            * plan.classes[j].nchunks * (plan.classes[j].W > 1))
+            * plan.classes[j].nchunks)
     c = plan.classes[i]
-    _, ss, sa = plan.dev[i]
-    K, prod, _ = bk.expand_pre(ss, sa, state.a_val, state.b_col,
-                               state.b_val)
+    d = plan.dev[i]
+    K, prod, _ = bk.expand_pre(d["slot_src"], d["slot_aidx"], state.a_val,
+                               state.b_col, state.b_val)
     w2 = c.W
     slots = K.numel()
     ms = cuda_ms(lambda: et.esc_tail_flat(K, prod, w2=w2), 20)
@@ -247,6 +375,173 @@ def time_kernel(torch, et, bk, state) -> dict:
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "w2": w2, "slots": slots}
+
+
+def time_slab_tail(torch, et, bk, state) -> dict:
+    """The slab form on the forced-fill plan's widest fill class, on the
+    fill frontend's own output (raw slab, the plan's row counts)."""
+    plan = state.plan
+    i = max((j for j, c in enumerate(plan.classes) if c.fill and c.W > 1),
+            key=lambda j: plan.classes[j].W * plan.classes[j].rb
+            * plan.classes[j].nchunks)
+    c, d = plan.classes[i], plan.dev[i]
+    K, prod, rl = bk.class_front(c, d, state.a_val, state.b_col,
+                                 state.b_val, state.pairs)
+    w2 = c.W
+    ms = cuda_ms(lambda: et.esc_tail(K, prod, rl, w2=w2), 20)
+    plain_ms = cuda_ms(lambda: et.esc_tail_plain(K, prod, rl, w2=w2), 3,
+                       warmup=1)
+    lib_ms = cuda_ms(lambda: torch.sort(K, dim=1), 20)
+    oK, oV, cnt = et.esc_tail(K, prod, rl, w2=w2)
+    pK, pV, pc = et.esc_tail_plain(K, prod, rl, w2=w2)
+    check(torch.equal(oK, pK) and torch.equal(cnt, pc),
+          "esc_tail differs from its plain version on the fill class")
+    err = float((oV - pV).abs().max())
+    check(err <= 1e-9 * max(1.0, float(pV.abs().max())),
+          f"esc_tail values differ on the fill class: {err}")
+    valid = int(rl.clamp(max=w2).sum())
+    adds = valid - int(cnt.sum())
+    slots = K.numel()
+    nbytes = slots * (4 + 8) * 2 + K.shape[0] * 4 * 2
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = adds / FP64_FLOPS * 1e3
+    print(f"timing esc_tail on {FILL_MATRIX}'s forced-fill W={w2} class "
+          f"({K.shape[0]} rows, {slots} slots): {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, torch.sort {lib_ms:.4f} ms, bound "
+          f"{max(bytes_ms, ops_ms):.4f} ms ({nbytes} B, {adds} adds); "
+          f"kernel vs plain max abs err {err:.3e}", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "w2": w2, "slots": slots, "max_abs_err_main_path": err}
+
+
+def time_fill(torch, rf, bk, state) -> dict:
+    """ragged_fill at the shapes of cage12's windowed extraction, on the
+    stream of its own warm slabs; checked against the plain version on
+    the covered words first."""
+    plan, ext = state.plan, state.plan.ext
+    slabs = bk.bucketed_main(plan, state.a_val, state.b_col, state.b_val,
+                             state.pairs, route=state.route)
+    stream = bk.extract_stream(slabs, ext)
+    del slabs
+    win_row, runs = bk._ext_dev(ext, stream.device)
+    kw = dict(out_rows=ext.nplanes * ext.cap_slots // 128,
+              nplanes=ext.nplanes, src_stride_rows=ext.area_pad // 128,
+              dst_stride=ext.cap_slots)
+    got = rf.ragged_fill(win_row, runs, stream, **kw)
+    want = rf.ragged_fill_plain(win_row, runs, stream, **kw)
+    cov = rf.ragged_fill_plain(win_row, runs, torch.ones_like(stream),
+                               **kw) != 0
+    check(torch.equal(got[cov], want[cov]),
+          "ragged_fill differs from its plain version on the extraction")
+    words = int(cov.sum())
+    check(words == plan.nnz_c * ext.nplanes,
+          f"the extraction runs cover {words} words, not nnz(C) x planes")
+    del got, want, cov
+    ms = cuda_ms(lambda: rf.ragged_fill(win_row, runs, stream, **kw), 20)
+    plain_ms = cuda_ms(lambda: rf.ragged_fill_plain(win_row, runs, stream,
+                                                    **kw), 3, warmup=1)
+    src = torch.as_tensor(plan.ext_src_h[: plan.nnz_c]).to(
+        stream.device).long()
+    idx = torch.cat([src + bk._FILL_BIAS_WORDS + p * ext.area_pad
+                     for p in range(ext.nplanes)])
+    flat = stream.view(-1)
+    lib_ms = cuda_ms(lambda: torch.index_select(flat, 0, idx), 20)
+    nbytes = words * 8                  # each copied word read and written
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"timing ragged_fill on {FILL_MATRIX}'s windowed extraction "
+          f"({ext.nchunks} chunks, {int(ext.win_row[:, :, 1].sum())} runs, "
+          f"{words} words in {ext.nplanes} planes): {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({nbytes} B)", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "words": words}
+
+
+def fill_phase(torch, mt, et, rf, A, ref, default_state, dev) -> tuple:
+    """cage12 under dma_fill="on": its W=256 class takes the fill
+    frontend; C equals the oracle; ragged_fill and esc_tail, set to 0
+    before, both ran.  Its warm ms beside the default path's, timed in
+    turns (fill, default, fill, default)."""
+    from mh_spgemm_torch.pipeline import spgemm_bucketed
+    cfg = mt.SpGEMMConfig(dma_fill="on")
+    for fn in (et.esc_tail_flat, et.esc_tail, rf.ragged_fill):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    Cd, state = spgemm_bucketed(A, A, config=cfg, device=dev)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    check(Cd.host().equals(ref, tol=1e-9), "forced fill: cold != oracle")
+    plan = state.plan
+    check(any(c.W == 256 and c.fill for c in plan.classes),
+          f"forced fill: no W=256 fill class in {FILL_MATRIX}'s plan")
+    out = {}
+
+    def fill():
+        out["C"], _ = spgemm_bucketed(A, A, config=cfg, state=state)
+
+    def default():
+        spgemm_bucketed(A, A, state=default_state)
+
+    ms = [cuda_ms(fill, WARM_CALLS, warmup=1)]
+    check(out["C"].host().equals(ref, tol=1e-9),
+          "forced fill: warm != oracle")
+    launches = {fn.__name__: fn.launches
+                for fn in (et.esc_tail_flat, et.esc_tail, rf.ragged_fill)}
+    check(launches["esc_tail"] > 0 and launches["ragged_fill"] > 0,
+          f"forced fill did not launch esc_tail and ragged_fill: "
+          f"{launches}")
+    dms = [cuda_ms(default, WARM_CALLS, warmup=1)]
+    ms.append(cuda_ms(fill, WARM_CALLS, warmup=1))
+    dms.append(cuda_ms(default, WARM_CALLS, warmup=1))
+    row = {"matrix": FILL_MATRIX, "frontends": [(c.W, c.frontend)
+                                                for c in plan.classes],
+           "windowed_extraction": plan.ext is not None,
+           "fill_warm_ms": ms, "default_warm_ms": dms,
+           "fill_gflops": mt.gflops(A.intprod(A), float(np.mean(ms))),
+           "cold_ms": cold_ms, "launches": launches}
+    print("fill " + json.dumps(row), flush=True)
+    del Cd, out
+    return state, launches
+
+
+def masked_phase(torch, mt, rf, mats: dict, refs: dict, dev) -> dict:
+    """spgemm_masked cold, then warm, on each stand-in; ragged_fill is
+    set to 0 before each and must have run for each."""
+    from mh_spgemm_torch.pipeline import spgemm_masked
+    launches = {}
+    for name in MASKED_MATRICES:
+        A, ref = mats[name], refs[name]
+        rf.ragged_fill.launches = 0
+        t0 = time.perf_counter()
+        Cd, state = spgemm_masked(A, A, device=dev)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        check(Cd.host().equals(ref, tol=1e-9), f"masked {name}: cold != "
+              "oracle")
+        out = {}
+
+        def warm():
+            out["C"], _ = spgemm_masked(A, A, state=state)
+
+        ms = cuda_ms(warm, WARM_CALLS, warmup=1)
+        check(out["C"].host().equals(ref, tol=1e-9),
+              f"masked {name}: warm != oracle")
+        launches[name] = rf.ragged_fill.launches
+        check(launches[name] > 0, f"masked {name}: ragged_fill did not run")
+        plan = state.plan
+        intprod = A.intprod(A)
+        row = {"matrix": name, "warm_ms": ms,
+               "gflops": mt.gflops(intprod, ms), "cold_ms": cold_ms,
+               "classes": [{"W": c.W, "frontend": c.frontend, "Wt": e["Wt"],
+                            "tile_frontend": ("fill" if e["t_fill"]
+                                              else "gather")}
+                           for c, e in zip(plan.classes, state.extras)],
+               "windowed_extraction": plan.ext is not None,
+               "slots": sum(c.W * c.rb * c.nchunks for c in plan.classes),
+               "ragged_fill_launches": launches[name]}
+        print("masked " + json.dumps(row), flush=True)
+        del Cd, out, state
+    return launches
 
 
 def build_phase(_build) -> None:
@@ -352,10 +647,10 @@ def pair_kernel_phase(torch, pm, tbd, pdb, dev) -> dict:
     return errs
 
 
-def blockdense_phase(torch, mt, pm, mats: dict, dev):
+def blockdense_phase(torch, mt, pm, rf, mats: dict, dev):
     """Drive the block-dense engine on every stand-in; the pair kernels'
-    launch counts are set to 0 just before and read just after.  Returns
-    (states, launches)."""
+    and ragged_fill's launch counts are set to 0 just before and read
+    just after.  Returns (states, launches)."""
     from mh_spgemm_torch.pipeline import spgemm_blockdense
     kept, refs = {}, {}
     for name, A in mats.items():
@@ -363,7 +658,8 @@ def blockdense_phase(torch, mt, pm, mats: dict, dev):
         refs[name] = mt.oracle_spgemm(A, A)
         print(f"oracle {name}: {time.perf_counter() - t0:.2f} s",
               flush=True)
-    for fn in (pm.pair_matmul_f64, pm.pair_matmul_f32, pm.block_gather):
+    for fn in (pm.pair_matmul_f64, pm.pair_matmul_f32, pm.block_gather,
+               rf.ragged_fill):
         fn.launches = 0
     for name, A in mats.items():
         ref = refs[name]
@@ -395,22 +691,29 @@ def blockdense_phase(torch, mt, pm, mats: dict, dev):
                "intprod": intprod, "nnz_c": ref.nnz, "pairs": plan.npairs,
                "a_blocks": plan.nab, "c_blocks": plan.ncb,
                "strip_classes": [(s.nj, s.nrows_blk) for s in plan.strips],
+               "windowed_extraction": plan.ext is not None,
                "warm_ms": ms, "gflops": mt.gflops(intprod, ms),
                "cold_ms": cold_ms, "peak_mem_gb": peak}
         print("blockdense " + json.dumps(row), flush=True)
         kept[name] = state
         del C
     launches = {fn.__name__: fn.launches for fn in
-                (pm.pair_matmul_f64, pm.pair_matmul_f32, pm.block_gather)}
+                (pm.pair_matmul_f64, pm.pair_matmul_f32, pm.block_gather,
+                 rf.ragged_fill)}
     check(launches["pair_matmul_f64"] > 0 and launches["pair_matmul_f32"] > 0,
           f"the pair kernels were not launched: {launches}")
+    check(launches["ragged_fill"] > 0,
+          "the block-dense extraction did not launch ragged_fill")
     return kept, launches
 
 
-def blockdense_stages(torch, pm, tbd, mats: dict, states: dict, dev):
+def blockdense_stages(torch, pm, tbd, bk, mats: dict, states: dict, dev):
     """Device time of each stage of a block-dense call, timed alone:
     densify (cold calls only), the value and the pattern pair matmul,
-    the strips, and the extraction."""
+    the strips, and the extraction: as the plan runs it (windowed under
+    dma_fill="auto" where the cost model takes it) and by the gather
+    (dma_fill="off").  Returns the extraction times per matrix."""
+    ext_ms = {}
     for name, state in states.items():
         plan = state.plan
         d = plan.dev
@@ -437,13 +740,24 @@ def blockdense_stages(torch, pm, tbd, mats: dict, states: dict, dev):
                                           by_end_pair=False)
 
         main_out = strips()
+        flat = [(oC.reshape(-1), oV.reshape(-1), None)
+                for oC, oV in main_out[3]]
+
+        def gather():
+            return bk.bucketed_extract(flat, d["slab_start"], main_out[1],
+                                       m=plan.m, nnz_cap=plan.nnz_cap)
+
         row = {"matrix": name, "densify_ms": cuda_ms(dens, 3),
                "values_ms": cuda_ms(vals, 5), "patterns_ms": cuda_ms(pats, 5),
                "strips_ms": cuda_ms(strips, 3),
                "extract_ms": cuda_ms(
-                   lambda: tbd.finish_blockdense(plan, main_out), 5)}
+                   lambda: tbd.finish_blockdense(plan, main_out), 5),
+               "extract_windowed": plan.ext is not None,
+               "extract_gather_ms": cuda_ms(gather, 5)}
+        ext_ms[name] = row
         print("bdstages " + json.dumps(row), flush=True)
-        del cv, cp, main_out
+        del cv, cp, main_out, flat
+    return ext_ms
 
 
 def time_pair_kernels(torch, pm, tbd, state) -> dict:
@@ -531,6 +845,16 @@ def cli_phase() -> dict:
     text = (proc.stdout + proc.stderr).lower()
     check("jax" not in text and "mh_spgemm_tpu" not in text,
           "the CLI's output mentions JAX")
+    cmd = [sys.executable, "-m", "mh_spgemm_torch", "scircuit", "--mode",
+           "masked", "--check", "--iters", "2"]
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    for line in proc.stdout.splitlines():
+        print("cli-masked", line)
+    check(proc.returncode == 0, f"masked CLI exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    check("pass" in proc.stdout.splitlines(),
+          "the masked CLI's check did not pass")
     return res
 
 
@@ -546,6 +870,7 @@ def main() -> int:
     from mh_spgemm_torch.ops import bucketed as bk
     from mh_spgemm_torch.ops import esc_tail as et
     from mh_spgemm_torch.ops import pair_matmul as pm
+    from mh_spgemm_torch.ops import ragged_fill as rf
 
     # the plain versions and the library yardstick compute in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -569,22 +894,42 @@ def main() -> int:
     bd_mats = {name: load_matrix(name) for name in BD_MATRICES}
     done("load block-dense stand-ins")
     errs = kernel_phase(torch, et, dev)
+    serrs = slab_tail_phase(torch, et, dev)
+    ferr = fill_kernel_phase(torch, rf, bk, dev)
     perrs = pair_kernel_phase(torch, pm, tbd, bd_mats["pdb1HYS"], dev)
     done("kernels")
-    states, launches = main_path_phase(torch, mt, et, dev)
+    states, refs, mats, launches = main_path_phase(torch, mt, et, rf, dev)
     done("bucketed")
-    breakdown_phase(bk, states)
-    t = time_kernel(torch, et, bk, states["cage12"])
-    del states
-    done("bucketed stages and esc_tail_flat timing")
-    bd_states, bd_launches = blockdense_phase(torch, mt, pm, bd_mats, dev)
+    ext_ms = breakdown_phase(bk, states)
+    t = time_kernel(torch, et, bk, states[FILL_MATRIX])
+    tf = time_fill(torch, rf, bk, states[FILL_MATRIX])
+    done("bucketed stages, esc_tail_flat and ragged_fill timing")
+    fill_state, fill_launches = fill_phase(
+        torch, mt, et, rf, mats[FILL_MATRIX], refs[FILL_MATRIX],
+        states[FILL_MATRIX], dev)
+    ts = time_slab_tail(torch, et, bk, fill_state)
+    del states, fill_state
+    done("forced fill and esc_tail timing")
+    bd_states, bd_launches = blockdense_phase(torch, mt, pm, rf, bd_mats,
+                                              dev)
     done("block-dense")
-    blockdense_stages(torch, pm, tbd, bd_mats, bd_states, dev)
+    ext_ms.update(blockdense_stages(torch, pm, tbd, bk, bd_mats, bd_states,
+                                    dev))
     pt = time_pair_kernels(torch, pm, tbd, bd_states["pwtk"])
     del bd_states
     done("block-dense stages and pair-kernel timing")
+    m_launches = masked_phase(torch, mt, rf, mats, refs, dev)
+    del mats, refs
+    done("masked")
     cli = cli_phase()
     done("cli")
+    print("extraction " + json.dumps({
+        name: {k: v for k, v in row.items() if k.startswith("extract")}
+        for name, row in ext_ms.items()}))
+    fill_by_phase = {"bucketed": launches["ragged_fill"],
+                     "forced_fill": fill_launches["ragged_fill"],
+                     "blockdense": bd_launches["ragged_fill"],
+                     "masked": sum(m_launches.values())}
     replaces = {"pair_matmul_f32": "mh_spgemm_tpu/ops/pallas_gather.py:108",
                 "pair_matmul_f64": "mh_spgemm_tpu/ops/ozaki.py:201",
                 "block_gather": "mh_spgemm_tpu/ops/pallas_gather.py:43"}
@@ -592,13 +937,35 @@ def main() -> int:
         "name": "esc_tail_flat", "route": "cuda",
         "source": "mh_spgemm_torch/csrc/esc_tail.cu",
         "replaces": "mh_spgemm_tpu/ops/esc_tail.py:234",
-        "launches": launches,
+        "launches": launches["esc_tail_flat"],
         "max_abs_err": errs[torch.float64],
         "max_abs_err_f32": errs[torch.float32],
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
-        "timed_w2": t["w2"], "timed_slots": t["slots"]}] + [{
+        "timed_w2": t["w2"], "timed_slots": t["slots"]}, {
+        "name": "esc_tail", "route": "cuda",
+        "source": "mh_spgemm_torch/csrc/esc_tail.cu",
+        "replaces": "mh_spgemm_tpu/ops/esc_tail.py:286",
+        "launches": fill_launches["esc_tail"],
+        "launches_phase": "forced_fill",
+        "max_abs_err": serrs[torch.float64],
+        "max_abs_err_f32": serrs[torch.float32],
+        "ms": ts["ms"], "plain_ms": ts["plain_ms"],
+        "bound_ms": ts["bound_ms"], "bound_by": ts["bound_by"],
+        "library_ms": ts["library_ms"],
+        "timed_w2": ts["w2"], "timed_slots": ts["slots"]}, {
+        "name": "ragged_fill", "route": "cuda",
+        "source": "mh_spgemm_torch/csrc/ragged_fill.cu",
+        "replaces": "mh_spgemm_tpu/ops/ragged_fill.py:156",
+        "launches": sum(fill_by_phase.values()),
+        "launches_by_phase": fill_by_phase,
+        "max_abs_err": ferr,
+        "ms": tf["ms"], "plain_ms": tf["plain_ms"],
+        "bound_ms": tf["bound_ms"], "bound_by": tf["bound_by"],
+        "library_ms": tf["library_ms"],
+        "timed_on": f"{FILL_MATRIX} windowed extraction",
+        "timed_words": tf["words"]}] + [{
             "name": name, "route": "cuda",
             "source": "mh_spgemm_torch/csrc/pair_matmul.cu",
             "replaces": replaces[name],

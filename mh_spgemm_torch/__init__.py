@@ -5,12 +5,20 @@ Sparse general matrix-matrix multiplication C = A @ B over CSR matrices
 with two engines and a per-matrix choice between them (``mode="auto"``):
 
 * the bucketed expand-sort-compress engine: rows binned by product count
-  into power-of-two width classes, one gather-multiply per class, and a
-  hand-written CUDA kernel (``csrc/esc_tail.cu``) that sorts, accumulates
-  and left-packs each row;
+  into power-of-two width classes, one gather-multiply per class (or,
+  for rows with long B spans, a run copy by the hand-written CUDA kernel
+  ``csrc/ragged_fill.cu``), and a hand-written CUDA kernel
+  (``csrc/esc_tail.cu``) that sorts, accumulates and left-packs each
+  row;
 * the block-dense engine: dense 128 x 128 block products over the
   nonzero block-pair stream, by hand-written CUDA pair-matmul kernels
   (``csrc/pair_matmul.cu``).
+
+``mode="masked"`` runs the paper's own two-stage algorithm on the
+bucketed engine's classes: an exact symbolic stage over B's 32-column
+tile bitmap, then the numeric stage.  Both engines' extraction copies
+long rows into the CSR arrays with ``ragged_fill`` where its cost model
+says so.
 
 Computes in float64 (or float32) natively.  ``python -m mh_spgemm_torch``
 is the benchmark CLI.
@@ -27,8 +35,9 @@ from .errors import (DeviceError, MatrixFormatError, ShapeMismatchError,
                      SpGEMMError, VerificationError)
 from .io.mmio import extract_matrix_name, read_mtx, write_mtx
 from .pipeline import (choose_engine, prepare_blockdense_state,
-                       spgemm_blockdense, spgemm_bucketed, spgemm_chunked,
-                       spgemm_host)
+                       prepare_masked_state, spgemm_blockdense,
+                       spgemm_bucketed, spgemm_chunked, spgemm_host,
+                       spgemm_masked)
 from .timing import Timing, gflops
 
 __version__ = "0.1.0"
@@ -37,6 +46,7 @@ __all__ = [
     "CSR", "DeviceCSR", "SpGEMMConfig", "DEFAULT_CONFIG",
     "spgemm_bucketed", "spgemm_chunked", "spgemm_host",
     "spgemm_blockdense", "prepare_blockdense_state", "choose_engine",
+    "spgemm_masked", "prepare_masked_state",
     "oracle_spgemm", "timed_oracle_spgemm", "verify",
     "Timing", "gflops",
     "read_mtx", "write_mtx", "extract_matrix_name",

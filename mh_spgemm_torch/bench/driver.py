@@ -16,6 +16,7 @@ protocol) on one CUDA card.
 
     python -m mh_spgemm_torch pdb1HYS --check --stats
     python -m mh_spgemm_torch matrix.mtx --device cpu --mode blockdense
+    python -m mh_spgemm_torch scircuit --mode masked --check
 """
 
 from __future__ import annotations
@@ -96,11 +97,12 @@ def run_matrix(A: CSR, name: str, config: SpGEMMConfig,
         dev = pl.resolve_device(device)
         mode = config.mode
         if mode == "auto":
-            mode = pl.choose_engine(A, B, config)
+            mode = pl.choose_engine(A, B, config, device=dev)
             if verbose:
                 print(f"auto engine: {mode}")
         run = {"bucketed": pl.spgemm_bucketed,
-               "blockdense": pl.spgemm_blockdense}[mode]
+               "blockdense": pl.spgemm_blockdense,
+               "masked": pl.spgemm_masked}[mode]
 
         def one(t):
             nonlocal C, state

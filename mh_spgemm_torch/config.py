@@ -2,11 +2,12 @@
 
 ``SpGEMMConfig`` keeps the JAX package's field names and defaults, so a
 config written for one package reads the same in the other.  The port
-runs the bucketed engine with precomputed slot arrays, the block-dense
-engine, and ``mode="auto"`` choosing between them;
-:func:`check_supported` resolves every setting to what the port can run
-and raises on settings whose kernels or engines are not ported yet,
-naming the ROADMAP item that ports them.
+runs the bucketed engine (precomputed-slot, fill and gather frontends),
+the block-dense engine, ``mode="auto"`` choosing between them, and the
+class-based masked engine (``mode="masked"``); :func:`check_supported`
+resolves every setting to what the port can run and raises on settings
+whose kernels or engines are not ported yet, naming the ROADMAP item
+that ports them.  :func:`fill_mode` resolves ``dma_fill`` for a device.
 """
 
 from __future__ import annotations
@@ -59,14 +60,13 @@ class SpGEMMConfig:
 
 DEFAULT_CONFIG = SpGEMMConfig()
 
-_MODES = ("auto", "bucketed", "blockdense")
+_MODES = ("auto", "bucketed", "blockdense", "masked")
 _MODE_ITEMS = {
-    "masked": "ROADMAP Queue 1 item 9 (masked and ESC engines)",
-    "esc": "ROADMAP Queue 1 item 9 (masked and ESC engines)",
+    "esc": "ROADMAP Queue 1 item 9 (the DeviceCSR-level engines: "
+           "symbolic, numeric, binning and mode='esc')",
 }
 # settings whose "auto" resolves to off because their kernel is not ported
 _KERNEL_ITEMS = {
-    "dma_fill": "ROADMAP Queue 2 item 3 (ragged_fill, the fill frontend)",
     "planned": "ROADMAP Queue 2 items 4-5 (pgather and proute, the planned "
                "frontend)",
 }
@@ -96,6 +96,13 @@ def check_supported(config: SpGEMMConfig) -> str:
                 f"{name}={v!r}: its kernel is not ported yet: {item}")
         if v not in ("auto", "off"):
             raise ValueError(f"unknown {name} setting {v!r}")
+    if config.dma_fill == "interpret":
+        raise NotImplementedError(
+            "dma_fill='interpret' is the Pallas interpreter of the JAX "
+            "package; in the port 'on' forces the fill frontend on any "
+            "device, and CPU tensors take the plain version")
+    if config.dma_fill not in ("auto", "on", "off"):
+        raise ValueError(f"unknown dma_fill setting {config.dma_fill!r}")
     if config.ozaki == "interpret":
         raise NotImplementedError(
             "ozaki='interpret' is the Pallas interpreter of the JAX "
@@ -124,3 +131,14 @@ def check_supported(config: SpGEMMConfig) -> str:
             "esc_tail='interpret' is the Pallas interpreter of the JAX "
             "package; in the port CPU tensors take the plain version")
     raise ValueError(f"unknown esc_tail setting {config.esc_tail!r}")
+
+
+def fill_mode(config: SpGEMMConfig, device) -> str:
+    """``dma_fill`` resolved for a state prepared for ``device``: "auto"
+    lets the planners' cost models pick the fill frontend and the
+    windowed extraction on a CUDA device and is "off" elsewhere; "on"
+    forces them on any device; "off" is off.  The JAX package gates
+    "auto" on the TPU in the same places."""
+    if config.dma_fill == "auto":
+        return "auto" if torch.device(device).type == "cuda" else "off"
+    return config.dma_fill

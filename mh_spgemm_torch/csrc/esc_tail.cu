@@ -1,8 +1,13 @@
-// Flat ESC tail for Hopper (sm_90a): sort + accumulate + left-pack of
-// aligned power-of-two segments.
+// ESC tail for Hopper (sm_90a): sort + accumulate + left-pack of aligned
+// power-of-two segments.
 //
-// Replaces the TPU kernel mh_spgemm_tpu/ops/esc_tail.py:234 esc_tail_flat
-// (body _tail_kernel, :200).  What it computes, per aligned segment of
+// Replaces two TPU kernels with one body (_tail_kernel, :200):
+//   * mh_spgemm_tpu/ops/esc_tail.py:234 esc_tail_flat, over flat planes
+//     whose empty slots already carry the key 2^31-1;
+//   * mh_spgemm_tpu/ops/esc_tail.py:286 esc_tail, over [rows, w2] slabs
+//     with a per-row count row_len: slot j of row r is treated as empty
+//     (key 2^31-1, value 0) when j >= row_len[r], before the sort.
+// What it computes, per aligned segment of
 // w2 slots (2 <= w2 <= 65536, a power of two): the distinct keys in
 // ascending order with the sum of the values of each key, left-packed,
 // followed by 2^31-1 keys with value 0; the key 2^31-1 marks an empty
@@ -33,6 +38,10 @@
 //   4. the last slot of each run writes (key, sum) at its rank; slots at
 //      or past the segment's count write (2^31-1, 0).
 //
+// The slab form (row_len given) differs only in the load: the TPU kernel
+// masked the keys inside the kernel too, so its callers could hand over
+// slabs whose slots past a row's count hold whatever the fill left there.
+//
 // Plain C interface for ctypes.  Each function launches on the given
 // stream, does not synchronise, allocates nothing and returns
 // cudaGetLastError() after the launch.
@@ -46,6 +55,14 @@ constexpr int kEmpty = 0x7fffffff;
 constexpr int kThreads = 1024;
 constexpr int kMinTile = 1024;
 constexpr int kSmemMaxW2 = 8192;    // widest segment held in shared memory
+
+// Slot g is live unless a row count is given and g lies at or past its
+// segment's (row's) count.
+__device__ __forceinline__ bool slot_live(const int* row_len, long long g,
+                                          int w2) {
+  return row_len == nullptr ||
+         static_cast<int>(g & (w2 - 1)) < row_len[g / w2];
+}
 
 // Sort each aligned w2-wide segment of key[0..n) ascending, moving val.
 template <typename V>
@@ -131,8 +148,8 @@ __device__ void accumulate_and_pack(const int* key, V* v0, V* v1, int* c0,
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
 tail_smem(const int* __restrict__ keys, const V* __restrict__ vals,
-          int* out_key, V* out_val, int* out_count, long long slots,
-          int w2, int tile) {
+          const int* __restrict__ row_len, int* out_key, V* out_val,
+          int* out_count, long long slots, int w2, int tile) {
   extern __shared__ __align__(16) unsigned char smem[];
   V* v0 = reinterpret_cast<V*>(smem);
   V* v1 = v0 + tile;
@@ -142,8 +159,9 @@ tail_smem(const int* __restrict__ keys, const V* __restrict__ vals,
   const long long g0 = static_cast<long long>(blockIdx.x) * tile;
   for (int i = threadIdx.x; i < tile; i += blockDim.x) {
     const long long g = g0 + i;
-    key[i] = g < slots ? keys[g] : kEmpty;
-    v0[i] = g < slots ? vals[g] : V(0);
+    const bool live = g < slots && slot_live(row_len, g, w2);
+    key[i] = live ? keys[g] : kEmpty;
+    v0[i] = live ? vals[g] : V(0);
   }
   __syncthreads();
   bitonic_segments(key, v0, tile, w2);
@@ -156,8 +174,9 @@ tail_smem(const int* __restrict__ keys, const V* __restrict__ vals,
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
 tail_global(const int* __restrict__ keys, const V* __restrict__ vals,
-            int* out_key, V* out_val, int* out_count, long long slots,
-            int w2, unsigned char* scratch) {
+            const int* __restrict__ row_len, int* out_key, V* out_val,
+            int* out_count, long long slots, int w2,
+            unsigned char* scratch) {
   const long long g0 = static_cast<long long>(blockIdx.x) * w2;
   V* v0 = reinterpret_cast<V*>(scratch) + g0;
   V* v1 = reinterpret_cast<V*>(scratch) + slots + g0;
@@ -166,8 +185,9 @@ tail_global(const int* __restrict__ keys, const V* __restrict__ vals,
   int* c0 = key + slots;
   int* c1 = c0 + slots;
   for (int i = threadIdx.x; i < w2; i += blockDim.x) {
-    key[i] = keys[g0 + i];
-    v0[i] = vals[g0 + i];
+    const bool live = slot_live(row_len, g0 + i, w2);
+    key[i] = live ? keys[g0 + i] : kEmpty;
+    v0[i] = live ? vals[g0 + i] : V(0);
   }
   __syncthreads();
   bitonic_segments(key, v0, w2, w2);
@@ -176,9 +196,9 @@ tail_global(const int* __restrict__ keys, const V* __restrict__ vals,
 }
 
 template <typename V>
-int launch(const int* keys, const V* vals, int* out_key, V* out_val,
-           int* out_count, long long slots, int w2, void* scratch,
-           cudaStream_t stream) {
+int launch(const int* keys, const V* vals, const int* row_len,
+           int* out_key, V* out_val, int* out_count, long long slots,
+           int w2, void* scratch, cudaStream_t stream) {
   if (w2 < 2 || w2 > 65536 || (w2 & (w2 - 1)) != 0 || slots <= 0 ||
       slots % w2 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -192,12 +212,12 @@ int launch(const int* keys, const V* vals, int* out_key, V* out_val,
     if (err != cudaSuccess) return static_cast<int>(err);
     const long long blocks = (slots + tile - 1) / tile;
     tail_smem<V><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-        keys, vals, out_key, out_val, out_count, slots, w2, tile);
+        keys, vals, row_len, out_key, out_val, out_count, slots, w2, tile);
   } else {
     if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     tail_global<V><<<static_cast<unsigned>(slots / w2), kThreads, 0,
-                     stream>>>(keys, vals, out_key, out_val, out_count,
-                               slots, w2,
+                     stream>>>(keys, vals, row_len, out_key, out_val,
+                               out_count, slots, w2,
                                static_cast<unsigned char*>(scratch));
   }
   return static_cast<int>(cudaGetLastError());
@@ -218,15 +238,32 @@ long long esc_tail_flat_scratch_bytes(long long slots, int w2,
 int esc_tail_flat_f64(const int* keys, const double* vals, int* out_key,
                       double* out_val, int* out_count, long long slots,
                       int w2, void* scratch, void* stream) {
-  return launch<double>(keys, vals, out_key, out_val, out_count, slots, w2,
-                        scratch, static_cast<cudaStream_t>(stream));
+  return launch<double>(keys, vals, nullptr, out_key, out_val, out_count,
+                        slots, w2, scratch, static_cast<cudaStream_t>(stream));
 }
 
 int esc_tail_flat_f32(const int* keys, const float* vals, int* out_key,
                       float* out_val, int* out_count, long long slots,
                       int w2, void* scratch, void* stream) {
-  return launch<float>(keys, vals, out_key, out_val, out_count, slots, w2,
-                       scratch, static_cast<cudaStream_t>(stream));
+  return launch<float>(keys, vals, nullptr, out_key, out_val, out_count,
+                       slots, w2, scratch, static_cast<cudaStream_t>(stream));
+}
+
+// The slab form: keys/vals [rows, w2], row_len int32[rows].
+int esc_tail_f64(const int* keys, const double* vals, const int* row_len,
+                 int* out_key, double* out_val, int* out_count,
+                 long long slots, int w2, void* scratch, void* stream) {
+  if (row_len == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<double>(keys, vals, row_len, out_key, out_val, out_count,
+                        slots, w2, scratch, static_cast<cudaStream_t>(stream));
+}
+
+int esc_tail_f32(const int* keys, const float* vals, const int* row_len,
+                 int* out_key, float* out_val, int* out_count,
+                 long long slots, int w2, void* scratch, void* stream) {
+  if (row_len == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<float>(keys, vals, row_len, out_key, out_val, out_count,
+                       slots, w2, scratch, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

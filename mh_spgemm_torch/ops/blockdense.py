@@ -21,7 +21,9 @@ block-structured) multiply as batched dense block products:
 
 3. each C block-row becomes a left-packed strip (columns of the row in
    ascending order, survivors of the structural pattern first), and the
-   bucketed engine's extraction gathers the strips into CSR.
+   bucketed engine's extraction copies the strips into CSR: the windowed
+   ``ragged_fill`` copy where the plan's fill mode allows it and the cost
+   model agrees, else the gather.
 
 The host planner is numpy and equals the JAX planner array for array.
 The routing costs (:func:`_per_elem_s`) are the JAX package's TPU v5e
@@ -92,6 +94,12 @@ class BlockPlan:
     nnz_c: Optional[int] = None
     nnz_cap: Optional[int] = None
     crow_h: Optional[np.ndarray] = None  # learned per-row nnz(C) (host)
+    # windowed extraction: the resolved fill mode ("off", "auto", "on"),
+    # the plan (None: the gather extraction), and its inputs
+    dma_fill: str = "off"
+    ext: Optional[bucketed_ops.ExtractPlan] = None
+    ext_area: Optional[int] = None       # strip slab slots
+    ext_nplanes: Optional[int] = None    # column + value word planes
 
     def stats(self) -> dict:
         """Block-occupancy counters, with the JAX package's keys."""
@@ -493,19 +501,46 @@ def run_blockdense(plan: BlockPlan, a_val: Optional[torch.Tensor],
         pair_chunk=min(quantize(plan.npairs), pair_chunk), route=plan.route)
 
 
+def warm_blockplan_from_crow(plan: BlockPlan, crow: np.ndarray,
+                             ext_area: int, ext_nplanes: int) -> None:
+    """Fix what the first run's readback fixes, from per-row nnz(C)
+    counts and the strip geometry (``ext_area`` strip slots,
+    ``ext_nplanes`` = 3 for f64, 2 for f32): nnz(C), its capacity and,
+    where the plan's fill mode allows it and the cost model agrees, the
+    windowed extraction plan — the block-dense twin of
+    ``bucketed.warm_plan_from_crow``."""
+    crow = np.asarray(crow).astype(np.int32)[: plan.m]
+    plan.nnz_c = int(crow.sum())
+    plan.nnz_cap = quantize(max(1, plan.nnz_c))
+    plan.crow_h = crow
+    plan.ext_area = int(ext_area)
+    plan.ext_nplanes = int(ext_nplanes)
+    plan.ext = None
+    if plan.dma_fill != "off" and plan.nnz_c:
+        plan.ext = bucketed_ops.build_extract_plan(
+            plan.crow_h, plan.slab_row_start, area=plan.ext_area,
+            nplanes=plan.ext_nplanes, force=plan.dma_fill == "on")
+
+
 def finish_blockdense(plan: BlockPlan, main_out):
-    """Extraction of the strips into CSR through the bucketed engine's
-    ``bucketed_extract``.  The first run fetches the per-row counts (the
-    one host sync) and fixes the output capacity.  Returns (cptr, ccol,
-    cval)."""
+    """Extraction of the strips into CSR: the windowed copy when the plan
+    has one, else the bucketed engine's gather (``bucketed_extract``).
+    The first run fetches the per-row counts (the one host sync), fixes
+    the output capacity and plans the windowed copy.  Returns (cptr,
+    ccol, cval)."""
     crow, cptr, _, strips = main_out
     if plan.nnz_cap is None:
-        crow_h = crow.cpu().numpy()
-        plan.nnz_c = int(crow_h.sum())
-        plan.nnz_cap = quantize(max(1, plan.nnz_c))
-        plan.crow_h = crow_h[: plan.m].astype(np.int32)
+        vdt = strips[0][1].dtype if strips else torch.float32
+        warm_blockplan_from_crow(
+            plan, crow.cpu().numpy(),
+            ext_area=sum(oC.numel() for oC, _ in strips),
+            ext_nplanes=3 if vdt == torch.float64 else 2)
     slabs = [(oC.reshape(-1), oV.reshape(-1), None) for oC, oV in strips]
-    ccol, cval = bucketed_ops.bucketed_extract(
-        slabs, plan.dev["slab_start"], cptr, m=plan.m,
-        nnz_cap=plan.nnz_cap)
+    if plan.ext is not None:
+        ccol, cval = bucketed_ops.bucketed_extract_windowed(
+            slabs, plan.ext, nnz_cap=plan.nnz_cap, nnz_c=plan.nnz_c)
+    else:
+        ccol, cval = bucketed_ops.bucketed_extract(
+            slabs, plan.dev["slab_start"], cptr, m=plan.m,
+            nnz_cap=plan.nnz_cap)
     return cptr, ccol, cval

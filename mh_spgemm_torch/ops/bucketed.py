@@ -1,29 +1,51 @@
 """Bucketed expand-sort-compress SpGEMM — the port of
-``mh_spgemm_tpu/ops/bucketed.py`` on its precomputed-slot path.
+``mh_spgemm_tpu/ops/bucketed.py``.
 
 Host half (numpy): rows are binned by their intermediate-product count
-into power-of-two width classes W (W = 1 for single-product rows); each
-class is cut into chunks of ``rb`` rows, and every slot of a chunk's
-``rb * W`` slab gets, at plan time, the index of the B nonzero and of the
-A nonzero whose product lands there (``slot_src`` / ``slot_aidx``, -1 for
-an empty slot).  The plans are array-for-array those of the JAX planner
-with ``precompute=True`` and the fill, planned and grouped frontends off.
+into width classes W (powers of two on the precomputed-slot path, the
+1.5x grid 2, 3, 4, 6, 8, 12, ... with ``precompute=False``); each class
+is cut into chunks of ``rb`` rows with per-entry descriptors.  A class
+then runs one of three frontends, as the JAX planner decides:
 
-Device half (torch): per class, one gather of B columns, one of A and B
-values, one product, and one tail over all chunks at once (the slot
-arrays are flat ``[nchunks, rb * W]``, so there is no loop over chunks):
+* ``"pre"``: every slot of a chunk's ``rb * W`` slab gets, at plan time,
+  the index of the B nonzero and of the A nonzero whose product lands
+  there (``slot_src`` / ``slot_aidx``);
+* ``"fill"`` (``dma_fill`` not "off", rows whose B spans average at least
+  16 words): host-planned (src, dst, len) runs that the ``ragged_fill``
+  kernel (ops/ragged_fill.py) copies out of a planar stream of B's column
+  and value words (:func:`build_pairs_planar`), plus each row's product
+  count ``row_len``;
+* ``"gather"`` (``precompute=False``, the masked engine's plans): the
+  entry descriptors alone; the device broadcasts each entry down its
+  slots (the JAX package's hold-scan) and gathers B per slot.
+
+The plans are array-for-array those of the JAX planner with ``planar=True``
+and the planned and grouped frontends off.  ``dma_fill`` arrives resolved
+by the pipeline: "auto" (the cost model; the pipeline passes it only for
+a state prepared for a CUDA device), "on" (forced on any device) or
+"off".
+
+Device half (torch): per class, one frontend call and one tail call over
+all chunks at once (every step is row-local, so the chunks of a class
+batch as one ``[nchunks * rb, W]`` slab):
 
 * W = 1: no duplicates are possible, the product is the output;
-* W a power of two up to 65536: the flat ESC tail kernel
-  (ops/esc_tail.py, ``esc_tail_flat``) sorts each row's W slots by
-  column, sums equal columns and left-packs the survivors;
+* W a power of two up to 65536: the ESC tail kernel (ops/esc_tail.py;
+  ``esc_tail_flat`` on the flat pre slabs, the slab form ``esc_tail``
+  with the plan's ``row_len`` on fill and gather slabs) sorts each row's
+  W slots by column, sums equal columns and left-packs the survivors;
 * wider W (or ``esc_tail="off"``): the sort tail in torch ops, the port
   of the JAX package's XLA tail (``_chunk_tail``).
 
-Extraction gathers the left-packed row slabs into one CSR.  The first
-call learns nnz(C) per row with one small device-to-host copy; later
-calls use host-evaluated extraction indices and run without a sync
-between the main stage and the extraction.
+Extraction copies the left-packed row slabs into one CSR.  The first call
+learns nnz(C) per row with one small device-to-host copy; later calls use
+host-evaluated extraction indices and run without a sync between the main
+stage and the extraction.  Where ``dma_fill`` allows and the cost model
+agrees (:func:`build_extract_plan`), the extraction is the windowed copy
+instead: one ``ragged_fill`` run per C row and plane.
+
+Every cost constant here is the JAX package's TPU v5e figure, kept so the
+plans and the routing match; none is measured on the H100.
 """
 
 from __future__ import annotations
@@ -35,6 +57,7 @@ import numpy as np
 import torch
 
 from . import esc_tail as esc_tail_mod
+from . import ragged_fill as rf
 from .shapes import quantize
 
 I32_MAX = 2**31 - 1
@@ -44,17 +67,28 @@ I32_MAX = 2**31 - 1
 # fixed cost per extra class); they have not been measured on the H100.
 _MERGE_SLOT_NS = 30.0
 _CLASS_MERGE_NS = 1e6
-# The fill frontend's per-chunk slab budget in i32 words; the JAX
-# planner's consolidation never pushes a class across it even with the
-# fill off, so it shapes the plans (TPU VMEM budget, not an H100 limit).
+# The fill frontend's per-chunk slab budget in i32 words (the TPU's VMEM
+# budget, not an H100 limit); it caps fill chunks and shapes the class
+# consolidation, so the plans match.
 _FILL_WORDS_CAP = 3 << 18
-# Engine-routing constants of estimate_cost_s, copied from the JAX package
-# so mode="auto" picks the same engine.  All are TPU v5e measurements, not
-# yet measured on the H100: ns per slot of a gather-frontend class (the
-# JAX default of MHSPGEMM_GATHER_NS, which the port does not read), and
-# the fill frontend's shortest worthwhile span in i32 words.
+# Frontend and engine-routing constants of the JAX planner, TPU v5e
+# measurements, not measured on the H100: ns per slot of a gather-frontend
+# class (the JAX default of MHSPGEMM_GATHER_NS, which the port does not
+# read); the fill's cost per grid step (us), per run (us) and per slot
+# (ns); and its shortest worthwhile span in i32 words.
 _GATHER_NS_PER_SLOT = 30.0
+_FILL_STEP_US = 1.7
+_FILL_RUN_US = 0.4
+_FILL_NS_PER_SLOT = 2.0
 _FILL_MIN_SPAN_WORDS = 16
+_FILL_EPG = 256                # runs per grid step (descriptor block)
+# The fill streams start with this many zero words and every window one
+# row early with src biased by +128: the JAX encoding, kept so the run
+# descriptors compare array for array.
+_FILL_BIAS_WORDS = 8192
+# The windowed extraction's peak-memory guard of the JAX planner (the TPU
+# v5e's HBM budget, not an H100 limit), kept so the plans match.
+_EXTRACT_PEAK_BYTES = 11 * (1 << 30)
 
 
 class SlabOverflowError(ValueError):
@@ -77,9 +111,40 @@ class ClassPlan:
     ent_aidx: np.ndarray   # int32[nchunks, eb]   index into a_val
     hold_passes: int       # log2 bound on B-segment length within a row
     seg_passes: int        # log2 bound on same-column run length
+    # fill frontend (planar stream, run geometry in elements)
+    fill: bool = False
+    stride: int = 0                       # word planes: column + value words
+    wrows: int = 0                        # source window rows per step
+    out_rows: int = 0                     # slab rows per plane
+    win_row: Optional[np.ndarray] = None  # int32[nchunks, S, 2]
+    runs: Optional[np.ndarray] = None     # int32[nchunks, S, EPG, 3]
+    row_len: Optional[np.ndarray] = None  # int32[nchunks, rb] products/row
+    # precomputed-slot frontend
     pre: bool = False
     slot_src: Optional[np.ndarray] = None   # int32[nchunks, rb*W], -1 pad
     slot_aidx: Optional[np.ndarray] = None  # int32[nchunks, rb*W]
+
+    @property
+    def frontend(self) -> str:
+        return "fill" if self.fill else "pre" if self.pre else "gather"
+
+
+@dataclasses.dataclass
+class ExtractPlan:
+    """Host plan of the windowed extraction: per output chunk (a CSR slot
+    range of ``cap_slots``), the per-row packed-slab spans as (src, dst,
+    len) runs grouped into source windows.  One descriptor drives every
+    plane (columns, then the value words)."""
+
+    nplanes: int                        # column + value word planes
+    nchunks: int
+    cap_slots: int                      # output slots per chunk
+    wrows: int
+    area_pad: int                       # per-plane stream words (128-mult)
+    win_row: np.ndarray                 # int32[nchunks, S, 2]
+    runs: np.ndarray                    # int32[nchunks, S, EPG, 3]
+    device: Optional[torch.device] = None
+    dev: Optional[tuple] = None         # (win_row, runs) on ``device``
 
 
 @dataclasses.dataclass
@@ -92,8 +157,11 @@ class BucketPlan:
     classes: List[ClassPlan]
     intprod: int
     slab_row_start: Optional[np.ndarray] = None  # int32[m_cap] slab offset
+    dma_fill: str = "off"               # resolved: "off", "auto" or "on"
+    vwords: int = 2                     # value words: 2 = f64, 1 = f32
+    ext: Optional[ExtractPlan] = None   # windowed extraction (or None)
     device: Optional[torch.device] = None        # where ``dev`` lives
-    dev: Optional[list] = None          # per class (rows_g, src, aidx)
+    dev: Optional[list] = None          # per class: dict of device tensors
     dev_slab_start: Optional[torch.Tensor] = None
     class_caps: Optional[Tuple[int, ...]] = None  # quantized nnz per class
     nnz_c: Optional[int] = None
@@ -107,8 +175,8 @@ class BucketPlan:
         default_factory=lambda: {"direct": 0, "kernel": 0, "sort": 0})
 
     def stats(self) -> dict:
-        """Occupancy and padding counters, with the JAX package's keys
-        (every class runs the precomputed-slot frontend here)."""
+        """Occupancy and padding counters, with the JAX package's keys;
+        ``frontend`` names the frontend each class runs."""
         area = sum(c.W * c.rb * c.nchunks for c in self.classes)
         return {
             "engine": "bucketed",
@@ -120,8 +188,8 @@ class BucketPlan:
                 {"W": c.W, "chunks": c.nchunks, "rows_per_chunk": c.rb,
                  "rows": int((c.rows_g >= 0).sum()),
                  "entry_cap": c.eb, "hold_passes": c.hold_passes,
-                 "seg_passes": c.seg_passes, "fill": False, "G": 1,
-                 "frontend": "pre"}
+                 "seg_passes": c.seg_passes, "fill": c.fill, "G": 1,
+                 "frontend": c.frontend}
                 for c in self.classes
             ],
         }
@@ -132,8 +200,8 @@ def _log2_bound(x: int) -> int:
 
 
 def _width_class(p: np.ndarray, min_width: int) -> np.ndarray:
-    """Row width class per product count, as the cost model sees it:
-    powers of two plus 1.5x intermediates (8, 12, 16, 24, 32, ...)."""
+    """Row width class per product count: powers of two plus 1.5x
+    intermediates (8, 12, 16, 24, 32, ...)."""
     if p.size == 0:
         return p.astype(np.int64)
     pow2 = 2 ** np.ceil(np.log2(p)).astype(np.int64)
@@ -141,17 +209,147 @@ def _width_class(p: np.ndarray, min_width: int) -> np.ndarray:
     return np.maximum(min_width, np.where(p <= half, half, pow2))
 
 
+# ---------------------------------------------------------------------------
+# Fill planning (the JAX planner's run plans, verbatim)
+# ---------------------------------------------------------------------------
+
+def _plan_runs_chunk(ent_src: np.ndarray, ent_dst: np.ndarray,
+                     ent_len: np.ndarray, stride: int, pad_dst: int,
+                     wrows: int, epg: int):
+    """Run plan of one chunk: merge entry spans into maximal contiguous
+    runs, then group them (:func:`_group_runs`).  Returns (win_row
+    int32[S, 2], runs int32[S, epg, 3])."""
+    live = (ent_len > 0) & (ent_dst < pad_dst)
+    es = ent_src[live].astype(np.int64) * stride
+    ed = ent_dst[live].astype(np.int64) * stride
+    el = ent_len[live].astype(np.int64) * stride
+    if es.size == 0:
+        return (np.zeros((1, 2), np.int32), np.zeros((1, epg, 3),
+                                                     np.int32))
+    # entries are in dst order; a run extends while both src and dst
+    # advance contiguously (adjacent A columns hit adjacent B rows)
+    new = np.ones(es.size, bool)
+    new[1:] = (es[1:] != es[:-1] + el[:-1]) | (ed[1:] != ed[:-1] + el[:-1])
+    starts = np.flatnonzero(new)
+    rs, rd = es[starts], ed[starts]
+    rl = np.add.reduceat(el, starts)
+    return _group_runs(rs, rd, rl, wrows, epg)
+
+
+def _group_runs(rs: np.ndarray, rd: np.ndarray, rl: np.ndarray,
+                wrows: int, epg: int):
+    """Split (src, dst, len) runs to the window payload cap SW =
+    wrows*64, sort by source, and group into grid steps on the fixed
+    half-window grid (every run of step k lies in [k*SW, k*SW +
+    wrows*128)).  Shared by the expansion and the extraction planner."""
+    SW = wrows * 128 // 2
+    if rs.size == 0:
+        return (np.zeros((1, 2), np.int32), np.zeros((1, epg, 3),
+                                                     np.int32))
+    npieces = (-(-rl // SW)).astype(np.int64)
+    if npieces.max(initial=1) > 1:
+        idx = np.repeat(np.arange(rs.size), npieces)
+        within = (np.arange(idx.size)
+                  - np.repeat(np.cumsum(npieces) - npieces, npieces))
+        off = within * SW
+        rs, rd = rs[idx] + off, rd[idx] + off
+        rl = np.minimum(rl[idx] - off, SW)
+    o = np.argsort(rs, kind="stable")
+    rs, rd, rl = rs[o], rd[o], rl[o]
+    rs_b = rs + _FILL_BIAS_WORDS
+    wid = rs_b // SW
+    neww = np.ones(rs.size, bool)
+    neww[1:] = wid[1:] != wid[:-1]
+    wstart = np.flatnonzero(neww)
+    counts = np.diff(np.concatenate([wstart, [rs.size]]))
+    within = np.arange(rs.size) - np.repeat(wstart, counts)
+    newstep = neww | (within % epg == 0)
+    sid = np.cumsum(newstep) - 1
+    S = int(sid[-1]) + 1
+    win_row = np.zeros((S, 2), np.int32)
+    win_row[sid, 0] = (wid * (SW // 128) - 1).astype(np.int32)
+    win_row[:, 1] = np.bincount(sid, minlength=S).astype(np.int32)
+    runs = np.zeros((S * epg, 3), np.int32)
+    flat = sid * epg + (within % epg)
+    runs[flat, 0] = (rs_b - wid * SW + 128).astype(np.int32)
+    runs[flat, 1] = rd.astype(np.int32)
+    runs[flat, 2] = rl.astype(np.int32)
+    return win_row, runs.reshape(S, epg, 3)
+
+
+def _fill_wrows(W: int, stride: int) -> int:
+    """Window rows for a class: at least 2x the widest possible span so
+    the half-window grid always fits a run, capped at 128."""
+    need = max(16, 2 * ((W * stride + 127) // 128))
+    return min(128, 1 << (need - 1).bit_length())
+
+
+def _pad_steps(wins: list, runss: list):
+    """Stack per-chunk run plans, padded to one quantized step count."""
+    S = quantize(max(w.shape[0] for w in wins))
+    win_row = np.zeros((len(wins), S, 2), np.int32)
+    runs = np.zeros((len(wins), S, runss[0].shape[1], 3), np.int32)
+    for k, (w, r) in enumerate(zip(wins, runss)):
+        win_row[k, :w.shape[0]] = w
+        runs[k, :r.shape[0]] = r
+    return win_row, runs
+
+
+def fill_beats_gather(wins: list, slots: int) -> bool:
+    """The planner's cost test for a slab of ``slots`` filled by the run
+    plans ``wins`` (per chunk, int32[S, 2] win_row): the fill's cost per
+    grid step, per run and per slot against the gathers' per slot."""
+    steps = sum(w.shape[0] for w in wins)
+    runs = sum(int(w[:, 1].sum()) for w in wins)
+    fill_ns = (steps * _FILL_STEP_US * 1e3 + runs * _FILL_RUN_US * 1e3
+               + slots * _FILL_NS_PER_SLOT)
+    return fill_ns < slots * _GATHER_NS_PER_SLOT
+
+
+def _attach_fill_plan(c: ClassPlan, stride: int, force: bool) -> None:
+    """Build per-chunk run plans for a class and take the fill frontend
+    if the cost model says it beats the gathers (or ``force``).  The
+    stream is planar (one plane per word), so run geometry is in
+    elements and one descriptor drives every plane."""
+    wrows = _fill_wrows(c.W, 1)
+    wins, runss = [], []
+    for k in range(c.nchunks):
+        w, r = _plan_runs_chunk(c.ent_src[k], c.ent_dst[k], c.ent_len[k],
+                                1, c.rb * c.W, wrows, _FILL_EPG)
+        wins.append(w)
+        runss.append(r)
+    if not (force or fill_beats_gather(wins, c.W * c.rb * c.nchunks)):
+        return
+    win_row, runs = _pad_steps(wins, runss)
+    # per-row product count (tight packing: max over entries of dst+len)
+    row_len = np.zeros((c.nchunks, c.rb), np.int32)
+    for k in range(c.nchunks):
+        live = c.ent_len[k] > 0
+        dst = c.ent_dst[k][live].astype(np.int64)
+        end = dst + c.ent_len[k][live]
+        slot = dst // c.W
+        np.maximum.at(row_len[k], slot, (end - slot * c.W).astype(
+            np.int32))
+    c.fill = True
+    c.stride = stride
+    c.wrows = wrows
+    c.out_rows = -(-(c.rb * c.W) // 128)
+    c.win_row = win_row
+    c.runs = runs
+    c.row_len = row_len
+
+
 def estimate_cost_s(a_ptr: np.ndarray, a_col: np.ndarray,
                     b_ptr: np.ndarray, min_width: int = 8,
-                    vwords: int = 2) -> float:
+                    vwords: int = 2, fill: bool = False) -> float:
     """Host estimate of the bucketed engine's warm time in seconds (no
     plan built), the bucketed side of ``pipeline.choose_engine``: slots
-    per width class at a per-slot cost, plus 30 % for extraction.  The
-    per-slot costs are the JAX package's TPU v5e figures (10 ns for a
-    fill class, ``_GATHER_NS_PER_SLOT`` + 5 ns otherwise), not yet
-    measured on the H100.  On the card no class is a fill class: the
-    fill frontend is not ported, and the JAX package gates it on the
-    TPU."""
+    per width class at a per-slot cost, plus 30 % for extraction.  A
+    class whose B spans average at least 16 words costs 10 ns a slot when
+    ``fill`` (the state would be prepared for a CUDA device, where the
+    fill frontend runs), every other class ``_GATHER_NS_PER_SLOT`` + 5 ns.
+    The per-slot costs are the JAX package's TPU v5e figures, not
+    measured on the H100."""
     blens = np.diff(b_ptr).astype(np.int64)
     p_ent = blens[a_col]
     cs = np.concatenate([[0], np.cumsum(p_ent)])
@@ -165,14 +363,14 @@ def estimate_cost_s(a_ptr: np.ndarray, a_col: np.ndarray,
     vc = (vcs[a_ptr[1:]] - vcs[a_ptr[:-1]])[active]
     stride = 1 + vwords
     total = 0.0
-    fill_possible = False
+    fill_possible = fill and int(b_ptr[-1]) * stride < 2**31
     for W in np.unique(w):
         sel = w == W
         slots = int(W) * int(sel.sum())
         avg_words = p[sel].sum() * stride / max(1, vc[sel].sum())
-        fill = (fill_possible and W <= _FILL_WORDS_CAP // stride
-                and avg_words >= _FILL_MIN_SPAN_WORDS)
-        per_slot = 10.0 if fill else _GATHER_NS_PER_SLOT + 5.0
+        is_fill = (fill_possible and W <= _FILL_WORDS_CAP // stride
+                   and avg_words >= _FILL_MIN_SPAN_WORDS)
+        per_slot = 10.0 if is_fill else _GATHER_NS_PER_SLOT + 5.0
         total += slots * per_slot * 1e-9
     return total * 1.3
 
@@ -241,13 +439,20 @@ def _entries_numpy(a_ptr, a_col, b_ptr, p_ent, rows_c, rb, W, nchunks):
 
 
 def plan_buckets(a_ptr: np.ndarray, a_col: np.ndarray, b_ptr: np.ndarray,
-                 area_cap: int = 1 << 23, vwords: int = 2) -> BucketPlan:
-    """Bin rows into power-of-two width classes, consolidate small
-    classes, build per-chunk entry descriptors (native builder when the
-    host library is present, numpy otherwise) and the per-slot arrays.
+                 min_width: int = 2, area_cap: int = 1 << 23,
+                 vwords: int = 2, dma_fill: str = "off",
+                 precompute: bool = True) -> BucketPlan:
+    """Bin rows into width classes, consolidate small classes, build
+    per-chunk entry descriptors (native builder when the host library is
+    present, numpy otherwise), and pick each class's frontend.
 
-    ``vwords`` is the value width in i32 words (2 = f64, 1 = f32); it
-    only enters through the consolidation cap.  Raises
+    ``vwords`` is the value width in i32 words (2 = f64, 1 = f32).
+    ``dma_fill`` ("off", "auto", "on", resolved by the pipeline) lets
+    classes with long B spans take the fill frontend: "auto" by the cost
+    model, "on" always.  ``precompute`` gives the power-of-two width grid
+    and precomputed slot arrays to every class that does not fill;
+    without it (the masked engine) the grid is ``_width_class`` from
+    ``min_width`` and such classes run the gather frontend.  Raises
     :class:`SlabOverflowError` when the slab needs more than int32
     indexing."""
     from ..utils import native as native_lib
@@ -264,18 +469,28 @@ def plan_buckets(a_ptr: np.ndarray, a_col: np.ndarray, b_ptr: np.ndarray,
     if active.size == 0:
         m_cap = quantize(max(1, m))
         return BucketPlan(m=m, m_cap=m_cap, classes=classes,
-                          intprod=intprod,
+                          intprod=intprod, dma_fill=dma_fill,
+                          vwords=vwords,
                           slab_row_start=np.zeros(m_cap, np.int32))
 
     p = p_row[active]
     vcs = np.concatenate([[0], np.cumsum(p_ent > 0)])
     row_vcnt = (vcs[a_ptr[1:]] - vcs[a_ptr[:-1]]).astype(np.int64)
-    fill_slot_cap = _FILL_WORDS_CAP // (1 + vwords)
+    stride = 1 + vwords
+    b_starts = b_ptr[:-1]
+    fill_force = dma_fill == "on"
+    fill_ok = (dma_fill in ("auto", "on") and vwords in (1, 2)
+               and int(b_starts.max() + b_lens.max()
+                       if b_starts.size else 0) * stride < 2**31)
+    fill_slot_cap = _FILL_WORDS_CAP // stride
+    span = p * stride / np.maximum(1, row_vcnt[active])
 
-    # pow2 widths (the flat tail needs aligned pow2 segments); rows with
-    # one product take the W = 1 direct path
-    pw = 2 ** np.ceil(np.log2(np.maximum(1, p))).astype(np.int64)
-    wclass = np.where(p == 1, 1, np.maximum(2, pw))
+    wclass = _width_class(p, min_width)
+    if precompute:
+        # pow2 widths (the flat tail needs aligned pow2 segments); rows
+        # with one product take the W = 1 direct path
+        pw = 2 ** np.ceil(np.log2(np.maximum(1, p))).astype(np.int64)
+        wclass = np.where(p == 1, 1, np.maximum(2, pw))
 
     # class consolidation: merge a class into the next wider one while
     # the padding cost stays under the fixed per-class cost
@@ -286,22 +501,33 @@ def plan_buckets(a_ptr: np.ndarray, a_col: np.ndarray, b_ptr: np.ndarray,
         sel = wclass == w
         nxt = widths_u[i + 1]
         if nxt > fill_slot_cap >= w:
-            continue
-        if int(sel.sum()) * (nxt - w) * _MERGE_SLOT_NS < _CLASS_MERGE_NS:
+            continue                    # keep a fill-capable class in cap
+        fillish = (fill_ok and nxt <= fill_slot_cap
+                   and float(span[sel].mean()) >= _FILL_MIN_SPAN_WORDS)
+        slot_ns = 10.0 if fillish else _MERGE_SLOT_NS
+        if int(sel.sum()) * (nxt - w) * slot_ns < _CLASS_MERGE_NS:
             wclass[sel] = nxt
 
     groups = []
     for W in sorted(set(wclass.tolist())):
-        rows_c = active[wclass == W]                    # original order
-        rb = max(1, min(area_cap // W, quantize(max(1, rows_c.size))))
-        groups.append((W, rows_c, rb, max(1, -(-rows_c.size // rb))))
-    area = sum(W * rb * nchunks for W, _, rb, nchunks in groups)
+        sel = wclass == W
+        rows_c = active[sel]                            # original order
+        cand = False
+        if fill_ok and W <= fill_slot_cap:
+            pc = int(p[sel].sum())
+            ec = int(row_vcnt[rows_c].sum())
+            cand = fill_force or (pc * stride / max(1, ec)
+                                  >= _FILL_MIN_SPAN_WORDS)
+        cap = fill_slot_cap if cand else area_cap
+        rb = max(1, min(cap // W, quantize(max(1, rows_c.size))))
+        groups.append((W, rows_c, rb, max(1, -(-rows_c.size // rb)), cand))
+    area = sum(W * rb * nchunks for W, _, rb, nchunks, _ in groups)
     if area >= 2**31 or intprod >= 2**31:       # before any slot array
         raise SlabOverflowError(
             f"bucketed slab area {area} / intprod {intprod} exceeds int32 "
             "indexing; split the matrix (spgemm_chunked)")
 
-    for W, rows_c, rb, nchunks in groups:
+    for W, rows_c, rb, nchunks, cand in groups:
         vc = row_vcnt[rows_c]
         ecnt_max = int(np.max(np.add.reduceat(
             np.concatenate([vc, np.zeros(nchunks * rb - vc.size,
@@ -320,7 +546,10 @@ def plan_buckets(a_ptr: np.ndarray, a_col: np.ndarray, b_ptr: np.ndarray,
                       ent_dst=ent[0], ent_src=ent[1], ent_len=ent[2],
                       ent_aidx=ent[3], hold_passes=_log2_bound(W),
                       seg_passes=_log2_bound(W))
-        _attach_slot_arrays(c)
+        if cand:
+            _attach_fill_plan(c, stride, force=fill_force)
+        if precompute and not c.fill:
+            _attach_slot_arrays(c)
         classes.append(c)
 
     # flat offset of each row's slab in the concatenated class slabs
@@ -337,40 +566,100 @@ def plan_buckets(a_ptr: np.ndarray, a_col: np.ndarray, b_ptr: np.ndarray,
     slab_row_start = np.concatenate(
         [slab_row_start, np.zeros(m_cap - m, np.int32)])
     return BucketPlan(m=m, m_cap=m_cap, classes=classes, intprod=intprod,
-                      slab_row_start=slab_row_start)
+                      slab_row_start=slab_row_start, dma_fill=dma_fill,
+                      vwords=vwords)
 
 
 _CLASS_FIELDS = ("W", "rb", "nchunks", "eb", "rows_g", "ent_dst",
                  "ent_src", "ent_len", "ent_aidx", "hold_passes",
-                 "seg_passes", "slot_src", "slot_aidx")
+                 "seg_passes")
+_INT_FIELDS = ("W", "rb", "nchunks", "eb", "hold_passes", "seg_passes",
+               "stride", "wrows", "out_rows")
+_PRE_FIELDS = ("slot_src", "slot_aidx")
+_FILL_FIELDS = ("stride", "wrows", "out_rows", "win_row", "runs",
+                "row_len")
 
 
 def plan_from_arrays(fields: dict) -> BucketPlan:
     """Rebuild a plan from plain fields: ``m``, ``m_cap``, ``intprod``,
-    ``slab_row_start`` and ``classes``, a list of dicts holding every
-    name in ``_CLASS_FIELDS`` (for example the numpy fields of a JAX
-    package ``BucketPlan`` planned with precomputed slot arrays).  A class
-    that says it runs another frontend (``fill``, ``pf``, ``G > 1`` or
-    ``pre`` false) raises: the port runs only precomputed classes."""
+    ``slab_row_start``, optionally ``dma_fill`` and ``vwords``, and
+    ``classes``, a list of dicts (for example ``vars()`` of the classes of
+    a JAX package ``BucketPlan``).  A class holds every name in
+    ``_CLASS_FIELDS``, plus the slot arrays when ``pre`` or the planar
+    fill fields when ``fill``; without either it runs the gather
+    frontend.  A planned or grouped class (``pf``, ``G > 1``) or an
+    interleaved fill class raises: the port does not run them.  The
+    JAX ``dma_fill="interpret"`` reads as "on"."""
     classes = []
     for cf in fields["classes"]:
-        if (cf.get("fill") or cf.get("pf") or cf.get("G", 1) != 1
-                or not cf.get("pre", True) or cf.get("slot_src") is None):
+        if cf.get("pf") or cf.get("G", 1) != 1:
             raise NotImplementedError(
-                "only precomputed-slot classes are ported (ROADMAP "
-                "Queue 1: the ESC-gather and fill frontends come later)")
-        kw = {k: cf[k] for k in _CLASS_FIELDS}
-        for k in ("W", "rb", "nchunks", "eb", "hold_passes", "seg_passes"):
-            kw[k] = int(kw[k])
-        for k in _CLASS_FIELDS[4:9] + _CLASS_FIELDS[11:]:
-            kw[k] = np.ascontiguousarray(kw[k], dtype=np.int32)
-        classes.append(ClassPlan(pre=True, **kw))
+                "planned and grouped classes are not ported (ROADMAP "
+                "Queue 1 item 6)")
+        fill = bool(cf.get("fill"))
+        if fill and not cf.get("planar"):
+            raise NotImplementedError(
+                "the port's fill frontend takes planar streams only")
+        pre = not fill and bool(cf.get("pre", cf.get("slot_src") is not None))
+        names = _CLASS_FIELDS + (_FILL_FIELDS if fill else ()) + (
+            _PRE_FIELDS if pre else ())
+        kw = {k: cf[k] for k in names}
+        for k, v in kw.items():
+            kw[k] = int(v) if k in _INT_FIELDS else np.ascontiguousarray(
+                v, dtype=np.int32)
+        classes.append(ClassPlan(pre=pre, fill=fill, **kw))
+    mode = fields.get("dma_fill", "off")
     return BucketPlan(
         m=int(fields["m"]), m_cap=int(fields["m_cap"]), classes=classes,
         intprod=int(fields["intprod"]),
         slab_row_start=np.ascontiguousarray(fields["slab_row_start"],
-                                            dtype=np.int32))
+                                            dtype=np.int32),
+        dma_fill="on" if mode == "interpret" else mode,
+        vwords=int(fields.get("vwords", 2)))
 
+
+# ---------------------------------------------------------------------------
+# Fill streams
+# ---------------------------------------------------------------------------
+
+def needs_pairs(plan: BucketPlan) -> bool:
+    return any(c.fill for c in plan.classes)
+
+
+def pairs_wrows_max(plan: BucketPlan) -> int:
+    return max((c.wrows for c in plan.classes if c.fill), default=0)
+
+
+def pairs_plane_pitch(nnz: int, wrows_max: int) -> int:
+    """Row pitch of one plane of the planar stream: bias + data + window
+    slack, so a window read from the last run of a plane stays inside
+    that plane's rows."""
+    return -(-(_FILL_BIAS_WORDS + nnz) // 128) + wrows_max + rf.PAD_ROWS
+
+
+def build_pairs_planar(b_col: np.ndarray, b_val: np.ndarray, vwords: int,
+                       wrows_max: int) -> np.ndarray:
+    """Planar stream for the fill frontend: one ``[pitch, 128]`` plane per
+    word (the column, then the raw words of the value: two for f64, one
+    for f32 or any other 4-byte type) stacked vertically, each with the
+    bias prepad.  Returns i32[planes * pitch, 128]; the JAX package's
+    ``build_pairs_planar`` with ``df=False``."""
+    nnz = b_col.shape[0]
+    vw = (b_val.view(np.int32).reshape(nnz, vwords) if nnz
+          else np.zeros((0, vwords), np.int32))
+    planes = [b_col.astype(np.int32)] + [vw[:, i] for i in range(vwords)]
+    pitch = pairs_plane_pitch(nnz, wrows_max)
+    out = np.zeros((len(planes) * pitch, 128), np.int32)
+    flat = out.reshape(-1)
+    for pidx, pl_ in enumerate(planes):
+        base = pidx * pitch * 128 + _FILL_BIAS_WORDS
+        flat[base: base + nnz] = pl_
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Windowed extraction planning
+# ---------------------------------------------------------------------------
 
 def attach_static_extract(plan: BucketPlan) -> None:
     """Host-evaluate the extraction operands from the learned per-row
@@ -394,11 +683,87 @@ def attach_static_extract(plan: BucketPlan) -> None:
     plan.ext_static_dev = None
 
 
+def build_extract_plan(crow: np.ndarray, slab_row_start: np.ndarray,
+                       *, area: int, nplanes: int,
+                       force: bool) -> Optional[ExtractPlan]:
+    """Windowed-extraction plan for any engine whose output lies in
+    left-packed row slabs addressed by ``slab_row_start`` (bucketed and
+    masked classes, block-dense strips): one (src, dst, len) run per
+    nonempty C row, split at output-chunk and window caps.  None when the
+    rows are too short (average under 16 outputs, unless ``force``), the
+    addressing or the memory guard would overflow, or the cost model
+    prefers the gather extraction (unless ``force``)."""
+    nnz_c = int(crow.sum())
+    if nnz_c == 0:
+        return None
+    avg_slots = nnz_c / max(1, int((crow > 0).sum()))
+    if not force and avg_slots < _FILL_MIN_SPAN_WORDS:
+        return None
+    area_pad = -(-area // 128) * 128
+    nnz_cap = quantize(max(1, nnz_c))
+    if (area_pad * nplanes + _FILL_BIAS_WORDS >= 2**31
+            or nnz_cap * nplanes >= 2**31):
+        return None
+    peak_bytes = area * 12 + area * nplanes * 4 + nnz_cap * nplanes * 8
+    if peak_bytes > _EXTRACT_PEAK_BYTES:
+        return None
+    rows = np.flatnonzero(crow > 0)
+    cptr = np.concatenate([[0], np.cumsum(crow, dtype=np.int64)])
+    src = slab_row_start[rows].astype(np.int64)
+    dst = cptr[rows]
+    ln = crow[rows].astype(np.int64)
+    CAPS = _FILL_WORDS_CAP // nplanes       # output slots per chunk
+    wrows = 128
+    # split runs at output-chunk boundaries, then bucket by chunk
+    first = dst // CAPS
+    last = (dst + ln - 1) // CAPS
+    npieces = (last - first + 1)
+    if npieces.max(initial=1) > 1:
+        idx = np.repeat(np.arange(src.size), npieces)
+        within = (np.arange(idx.size)
+                  - np.repeat(np.cumsum(npieces) - npieces, npieces))
+        cut = (first[idx] + within) * CAPS
+        lo = np.maximum(dst[idx], cut)
+        hi = np.minimum(dst[idx] + ln[idx], cut + CAPS)
+        src = src[idx] + (lo - dst[idx])
+        ln = hi - lo
+        dst = lo
+    cid = dst // CAPS
+    nchunks = max(1, -(-nnz_cap // CAPS))
+    wins, runss, s_total, r_total = [], [], 0, 0
+    order = np.argsort(cid, kind="stable")
+    src, dst, ln, cid = src[order], dst[order], ln[order], cid[order]
+    bounds = np.searchsorted(cid, np.arange(nchunks + 1))
+    for o in range(nchunks):
+        sel = slice(bounds[o], bounds[o + 1])
+        w, r = _group_runs(src[sel], dst[sel] - o * CAPS, ln[sel],
+                           wrows, _FILL_EPG)
+        wins.append(w)
+        runss.append(r)
+        s_total += w.shape[0]
+        r_total += int(w[:, 1].sum())
+    # one descriptor drives all planes: 0.17 us of extra walk per extra
+    # plane on top of the first (TPU v5e figures, like every cost here)
+    fill_est = (s_total * _FILL_STEP_US * 1e3
+                + r_total * (_FILL_RUN_US + 0.17 * (nplanes - 1)) * 1e3
+                + nnz_c * nplanes * 0.7)
+    gather_est = nnz_c * (43.0 if nplanes == 3 else 29.0)
+    if fill_est >= gather_est and not force:
+        return None
+    win_row, runs = _pad_steps(wins, runss)
+    return ExtractPlan(nplanes=nplanes, nchunks=nchunks,
+                       cap_slots=CAPS, wrows=wrows,
+                       area_pad=area_pad, win_row=win_row, runs=runs)
+
+
 def warm_plan_from_crow(plan: BucketPlan, crow: np.ndarray) -> None:
-    """Warm a fresh plan from previously learned per-row nnz(C) counts
-    (from the same matrices and config), so its first call takes the
-    warm path: per-class capacities and the extraction operands are
-    derived exactly as the first run's readback would."""
+    """Fix what the first run's readback fixes, from per-row nnz(C)
+    counts: per-class capacities, nnz(C), the static extraction operands
+    and, where the plan's fill mode allows it and the cost model agrees,
+    the windowed extraction plan.  ``finish_bucketed`` calls it with the
+    counts it reads back; given counts learned before (from the same
+    matrices and config), a fresh plan's first call takes the warm
+    path."""
     crow = np.asarray(crow).astype(np.int64)[: plan.m]
     caps = []
     for c in plan.classes:
@@ -410,22 +775,35 @@ def warm_plan_from_crow(plan: BucketPlan, crow: np.ndarray) -> None:
     plan.nnz_cap = quantize(max(1, plan.nnz_c))
     plan.crow_h = crow.astype(np.int32)
     attach_static_extract(plan)
+    plan.ext = None
+    if plan.dma_fill != "off" and plan.nnz_c:
+        plan.ext = build_extract_plan(
+            plan.crow_h, plan.slab_row_start,
+            area=sum(c.W * c.rb * c.nchunks for c in plan.classes),
+            nplanes=1 + plan.vwords, force=plan.dma_fill == "on")
 
 
 # ---------------------------------------------------------------------------
 # Device half
 # ---------------------------------------------------------------------------
 
+_DEV_FIELDS = {
+    "fill": ("rows_g", "ent_dst", "ent_len", "ent_aidx", "row_len",
+             "win_row", "runs"),
+    "pre": ("rows_g", "slot_src", "slot_aidx"),
+    "gather": ("rows_g", "ent_dst", "ent_src", "ent_len", "ent_aidx"),
+}
+
+
 def upload_plan(plan: BucketPlan, device) -> None:
-    """Copy the plan's per-class tensors to ``device`` once and keep them
-    on the plan."""
+    """Copy each class's tensors (those its frontend reads) to ``device``
+    once and keep them on the plan."""
     device = torch.device(device)
     if plan.dev is not None and plan.device == device:
         return
     plan.device = device
-    plan.dev = [tuple(torch.as_tensor(x).to(device)
-                      for x in (c.rows_g, c.slot_src, c.slot_aidx))
-                for c in plan.classes]
+    plan.dev = [{k: torch.as_tensor(getattr(c, k)).to(device)
+                 for k in _DEV_FIELDS[c.frontend]} for c in plan.classes]
     plan.dev_slab_start = torch.as_tensor(plan.slab_row_start).to(device)
     plan.ext_static_dev = None
 
@@ -436,66 +814,97 @@ def _product(AV, bv, valid):
                                                    device=bv.device))
 
 
-def _seg_sum_rows(values, new, passes: int):
-    """Segmented inclusive sum along rows (``new`` marks run starts):
-    Hillis-Steele, ``passes`` doublings."""
-    v, f = values, new
-    dist = 1
-    for _ in range(passes):
-        sv = torch.zeros_like(v)
-        sv[:, dist:] = v[:, :-dist]
-        sf = torch.ones_like(f)
-        sf[:, dist:] = f[:, :-dist]
-        v = torch.where(f, v, v + sv)
-        f = f | sf
-        dist *= 2
-    return v
+def _hold_rows(starts: torch.Tensor, *values: torch.Tensor):
+    """Broadcast the value at each segment start down its segment, per
+    row (segments marked by ``starts``); slots before a row's first start
+    keep their own value.  The JAX package's ``_hold_scan_rows`` with
+    log2(W) passes, as one running max of start positions and a gather."""
+    R, W = starts.shape
+    pos = torch.arange(W, device=starts.device).expand(R, W)
+    idx = torch.cummax(torch.where(starts, pos, -1), dim=1).values
+    held = idx >= 0
+    idx = idx.clamp(min=0)
+    return [torch.where(held, torch.gather(v, 1, idx), v) for v in values]
 
 
-def _chunk_tail(K, prod, *, seg_passes: int):
-    """Sort tail over ``[rows, W]``: sort by column, segment-sum equal
-    columns, left-pack the survivors (the port of the JAX package's XLA
-    tail, ``bucketed.py:1289-1299``).  Slots past a row's count hold
-    2^31-1 and 0, as the kernel writes them.  Returns (oC, oV, nnz_row)."""
-    rows = K.shape[0]
-    sK, order = torch.sort(K, dim=1, stable=True)
-    sV = torch.gather(prod, 1, order)
-    new = torch.ones_like(sK, dtype=torch.bool)
-    new[:, 1:] = sK[:, 1:] != sK[:, :-1]
-    run = _seg_sum_rows(sV, new, seg_passes)
-    ends = torch.cat([new[:, 1:], torch.ones((rows, 1), dtype=torch.bool,
-                                             device=K.device)], dim=1)
-    ends &= sK < I32_MAX
-    nnz_row = ends.sum(dim=1, dtype=torch.int32)
-    rank = torch.cumsum(ends, dim=1, dtype=torch.int32) - 1
-    key2 = torch.where(ends, rank, I32_MAX)
-    k2, order2 = torch.sort(key2, dim=1, stable=True)
-    live = k2 < I32_MAX
-    oC = torch.where(live, torch.gather(sK, 1, order2), I32_MAX)
-    oV = torch.where(live, torch.gather(run, 1, order2),
-                     torch.zeros((), dtype=run.dtype, device=run.device))
-    return oC, oV, nnz_row
+def _seed(ent_dst, vals, *, rows: int, RW: int, W: int, fill=0):
+    """Scatter per-entry values to their slots in ``[nchunks * rb, W]``
+    (entries padded to ``rb * W`` are dropped)."""
+    nch = ent_dst.shape[0]
+    dev = ent_dst.device
+    live = ent_dst < RW
+    flat = torch.where(live, ent_dst.long()
+                       + torch.arange(nch, device=dev)[:, None] * RW,
+                       nch * RW).reshape(-1)
+    out = torch.full((nch * RW + 1,), fill, dtype=vals.dtype, device=dev)
+    out[flat] = vals.reshape(-1)
+    return out[: nch * RW].view(rows, W)
 
 
-def _flat_tail(K, prod, valid, *, W: int, rows: int, seg_passes: int,
-               route: str, counts: Dict[str, int]):
-    """Tail of one class over flat ``[rows * W]`` planes, routed by
-    width: W = 1 is the direct path; ``route == "kernel"`` sends pow2
-    widths up to 65536 through ``esc_tail_flat``; every other width (and
-    ``route == "sort"``) takes the sort tail.  Adds the class's slots to
-    ``counts`` under the route taken.  Returns (oC [L], oV [L],
-    nnz_row [rows])."""
-    L = rows * W
-    if W == 1:
-        counts["direct"] += L
-        return K, prod, valid.to(torch.int32)
-    if route == "kernel" and esc_tail_mod.supported_w2(W):
-        counts["kernel"] += L
-        return esc_tail_mod.esc_tail_flat(K, prod, w2=W)
-    counts["sort"] += L
-    oC, oV, nnz_row = _chunk_tail(K.view(rows, W), prod.view(rows, W),
-                                  seg_passes=seg_passes)
-    return oC.reshape(L), oV.reshape(L), nnz_row
+def front_gather(d: dict, a_val, b_col, b_val, *, W: int, rb: int):
+    """Gather frontend over all chunks of a class: seed each entry's
+    (B source, length, slot, A value) at its first slot, hold them down
+    the entry's span, and gather B's column and value per slot (the JAX
+    package's ``_front_gather`` with plain takes).  Returns (K, prod,
+    valid), ``[nchunks * rb, W]``, with K 2^31-1 and prod 0 where no
+    product lands."""
+    ent_dst = d["ent_dst"]
+    RW = rb * W
+    rows = ent_dst.shape[0] * rb
+    kw = dict(rows=rows, RW=RW, W=W)
+    starts = _seed(ent_dst, torch.ones_like(ent_dst, dtype=torch.bool),
+                   fill=False, **kw)
+    src0, len0, dst_s, AV = _hold_rows(
+        starts, _seed(ent_dst, d["ent_src"], **kw),
+        _seed(ent_dst, d["ent_len"], **kw), _seed(ent_dst, ent_dst, **kw),
+        _seed(ent_dst, a_val[d["ent_aidx"].long()], **kw))
+    pos = torch.arange(RW, dtype=torch.int32, device=ent_dst.device).view(
+        rb, W).repeat(ent_dst.shape[0], 1)
+    off = pos - dst_s
+    valid = (off >= 0) & (off < len0)
+    src = torch.where(valid, src0 + off, 0).long()
+    K = torch.where(valid, b_col[src], I32_MAX)
+    return K, _product(AV, b_val[src], valid), valid
+
+
+def slab_planes(slab, *, nplanes: int, out_rows: int, rb: int, W: int):
+    """The planes of a batched ``ragged_fill`` output (per chunk,
+    ``nplanes`` planes of ``out_rows`` rows one after another), each cut
+    to the chunks' ``[rb, W]`` slabs: ``nplanes`` tensors of
+    ``[nchunks * rb, W]``."""
+    flat = slab.view(slab.shape[0], -1)
+    n = out_rows * 128
+    return [flat[:, p * n: p * n + rb * W].reshape(-1, W)
+            for p in range(nplanes)]
+
+
+def front_fill(d: dict, a_val, pairs2d, *, W: int, rb: int, stride: int,
+               out_rows: int):
+    """Fill frontend over all chunks of a class (the JAX package's
+    ``_front_fill``, planar branch): one ``ragged_fill`` launch streams
+    every chunk's B columns and value words into its slab, the A value
+    of each entry is held down its span, and validity is one comparison
+    with the plan's per-row count.  Returns (K, prod, row_len): the raw
+    slab columns and products, ``[nchunks * rb, W]``, undefined at and
+    past each row's ``row_len``."""
+    slab = rf.ragged_fill(d["win_row"], d["runs"], pairs2d,
+                          out_rows=stride * out_rows, nplanes=stride,
+                          src_stride_rows=pairs2d.shape[0] // stride,
+                          dst_stride=out_rows * 128)
+    planes = slab_planes(slab, nplanes=stride, out_rows=out_rows, rb=rb,
+                         W=W)
+    K = planes[0]
+    if stride == 3:           # the two raw words of each f64 value
+        bv = torch.stack(planes[1:], dim=-1).view(torch.float64).squeeze(-1)
+    else:
+        bv = planes[1].view(torch.float32).to(a_val.dtype)
+    ent_dst = d["ent_dst"]
+    kw = dict(rows=K.shape[0], RW=rb * W, W=W)
+    starts = _seed(ent_dst, torch.ones_like(ent_dst, dtype=torch.bool),
+                   fill=False, **kw)
+    AV, = _hold_rows(starts, _seed(ent_dst, a_val[d["ent_aidx"].long()],
+                                   **kw))
+    return K.contiguous(), (AV * bv).contiguous(), d["row_len"].reshape(-1)
 
 
 def expand_pre(slot_src, slot_aidx, a_val, b_col, b_val):
@@ -513,26 +922,131 @@ def expand_pre(slot_src, slot_aidx, a_val, b_col, b_val):
     return K, prod, valid
 
 
-def _chunk_pre(slot_src, slot_aidx, a_val, b_col, b_val, *, W: int,
-               rows: int, seg_passes: int, route: str,
+def seg_scan_rows(values, new, passes: int, op=torch.add):
+    """Segmented inclusive scan along rows by ``op`` (a sum, or an OR of
+    bit masks; ``new`` marks run starts): Hillis-Steele, ``passes``
+    doublings."""
+    v, f = values, new
+    dist = 1
+    for _ in range(passes):
+        sv = torch.zeros_like(v)
+        sv[:, dist:] = v[:, :-dist]
+        sf = torch.ones_like(f)
+        sf[:, dist:] = f[:, :-dist]
+        v = torch.where(f, v, op(v, sv))
+        f = f | sf
+        dist *= 2
+    return v
+
+
+def _chunk_tail(K, prod, *, seg_passes: int):
+    """Sort tail over ``[rows, W]``: sort by column, segment-sum equal
+    columns, left-pack the survivors (the port of the JAX package's XLA
+    tail, ``bucketed.py:1289-1299``).  Slots past a row's count hold
+    2^31-1 and 0, as the kernel writes them.  Returns (oC, oV, nnz_row)."""
+    rows = K.shape[0]
+    sK, order = torch.sort(K, dim=1, stable=True)
+    sV = torch.gather(prod, 1, order)
+    new = torch.ones_like(sK, dtype=torch.bool)
+    new[:, 1:] = sK[:, 1:] != sK[:, :-1]
+    run = seg_scan_rows(sV, new, seg_passes)
+    ends = torch.cat([new[:, 1:], torch.ones((rows, 1), dtype=torch.bool,
+                                             device=K.device)], dim=1)
+    ends &= sK < I32_MAX
+    nnz_row = ends.sum(dim=1, dtype=torch.int32)
+    rank = torch.cumsum(ends, dim=1, dtype=torch.int32) - 1
+    key2 = torch.where(ends, rank, I32_MAX)
+    k2, order2 = torch.sort(key2, dim=1, stable=True)
+    live = k2 < I32_MAX
+    oC = torch.where(live, torch.gather(sK, 1, order2), I32_MAX)
+    oV = torch.where(live, torch.gather(run, 1, order2),
+                     torch.zeros((), dtype=run.dtype, device=run.device))
+    return oC, oV, nnz_row
+
+
+def _flat_tail(K, prod, valid, *, W: int, rows: int, seg_passes: int,
+               route: str, counts: Dict[str, int]):
+    """Tail of a precomputed class over flat ``[rows * W]`` planes, routed
+    by width: W = 1 is the direct path; ``route == "kernel"`` sends pow2
+    widths up to 65536 through ``esc_tail_flat``; every other width (and
+    ``route == "sort"``) takes the sort tail.  Adds the class's slots to
+    ``counts`` under the route taken.  Returns (oC [L], oV [L],
+    nnz_row [rows])."""
+    L = rows * W
+    if W == 1:
+        counts["direct"] += L
+        return K, prod, valid.to(torch.int32)
+    if route == "kernel" and esc_tail_mod.supported_w2(W):
+        counts["kernel"] += L
+        return esc_tail_mod.esc_tail_flat(K, prod, w2=W)
+    counts["sort"] += L
+    oC, oV, nnz_row = _chunk_tail(K.view(rows, W), prod.view(rows, W),
+                                  seg_passes=seg_passes)
+    return oC.reshape(L), oV.reshape(L), nnz_row
+
+
+def slab_tail(K, prod, row_len, *, W: int, seg_passes: int, route: str,
+              counts: Dict[str, int]):
+    """Tail of a ``[rows, W]`` slab whose slots at and past ``row_len``
+    are empty (the JAX package's ``_chunk_tail``): ``route == "kernel"``
+    sends pow2 widths up to 65536 through the slab kernel ``esc_tail``
+    with ``row_len``; otherwise the slots are masked and W = 1 takes the
+    direct path, any other width the sort tail.  Returns flat (oC [L],
+    oV [L], nnz_row [rows])."""
+    rows = K.shape[0]
+    L = rows * W
+    if W > 1 and route == "kernel" and esc_tail_mod.supported_w2(W):
+        counts["kernel"] += L
+        oC, oV, nnz_row = esc_tail_mod.esc_tail(K, prod, row_len, w2=W)
+        return oC.reshape(L), oV.reshape(L), nnz_row
+    valid = (torch.arange(W, device=K.device)[None, :]
+             < row_len.to(torch.int64)[:, None])
+    K = torch.where(valid, K, I32_MAX)
+    prod = torch.where(valid, prod, torch.zeros((), dtype=prod.dtype,
+                                                device=prod.device))
+    if W == 1:
+        counts["direct"] += L
+        return K.reshape(L), prod.reshape(L), valid.sum(
+            dim=1, dtype=torch.int32)
+    counts["sort"] += L
+    oC, oV, nnz_row = _chunk_tail(K, prod, seg_passes=seg_passes)
+    return oC.reshape(L), oV.reshape(L), nnz_row
+
+
+def class_front(c: ClassPlan, d: dict, a_val, b_col, b_val, pairs2d):
+    """The frontend of class ``c`` over all its chunks; its output feeds
+    :func:`class_tail`."""
+    if c.fill:
+        return front_fill(d, a_val, pairs2d, W=c.W, rb=c.rb,
+                          stride=c.stride, out_rows=c.out_rows)
+    if c.pre:
+        return expand_pre(d["slot_src"], d["slot_aidx"], a_val, b_col,
+                          b_val)
+    K, prod, valid = front_gather(d, a_val, b_col, b_val, W=c.W, rb=c.rb)
+    return K, prod, valid.sum(dim=1, dtype=torch.int32)
+
+
+def class_tail(c: ClassPlan, front, *, route: str,
                counts: Dict[str, int]):
-    """All chunks of one precomputed class at once: frontend, then the
-    tail routed by width."""
-    K, prod, valid = expand_pre(slot_src, slot_aidx, a_val, b_col, b_val)
-    return _flat_tail(K, prod, valid, W=W, rows=rows,
-                      seg_passes=seg_passes, route=route, counts=counts)
+    """The tail of class ``c`` on its frontend's output; returns the
+    class slab ``(cols [L], vals [L], nnz_row [rows])``, left-packed per
+    row."""
+    rows = c.nchunks * c.rb
+    if c.pre:
+        return _flat_tail(*front, W=c.W, rows=rows, seg_passes=c.seg_passes,
+                          route=route, counts=counts)
+    return slab_tail(*front, W=c.W, seg_passes=c.seg_passes, route=route,
+                     counts=counts)
 
 
-def bucketed_main(plan: BucketPlan, a_val, b_col, b_val, *, route: str):
+def bucketed_main(plan: BucketPlan, a_val, b_col, b_val, pairs2d=None, *,
+                  route: str):
     """Main stage over every class; returns the per-class slabs
-    ``[(cols [L], vals [L], nnz_row [rows])]``, left-packed per row."""
-    slabs = []
-    for c, (rows_g, ss, sa) in zip(plan.classes, plan.dev):
-        slabs.append(_chunk_pre(ss, sa, a_val, b_col, b_val, W=c.W,
-                                rows=c.nchunks * c.rb,
-                                seg_passes=c.seg_passes, route=route,
-                                counts=plan.tail_slots))
-    return slabs
+    ``[(cols [L], vals [L], nnz_row [rows])]``, left-packed per row.
+    ``pairs2d`` is the planar fill stream (needed when a class fills)."""
+    return [class_tail(c, class_front(c, d, a_val, b_col, b_val, pairs2d),
+                       route=route, counts=plan.tail_slots)
+            for c, d in zip(plan.classes, plan.dev)]
 
 
 def bucketed_counts(plan: BucketPlan, slabs):
@@ -543,7 +1057,8 @@ def bucketed_counts(plan: BucketPlan, slabs):
     m = plan.m_cap
     crow = torch.zeros(m + 1, dtype=torch.int32, device=dev)
     totals = []
-    for (rows_g, _, _), (_, _, nnz_row) in zip(plan.dev, slabs):
+    for d, (_, _, nnz_row) in zip(plan.dev, slabs):
+        rows_g = d["rows_g"]
         idx = torch.where(rows_g >= 0, rows_g, m).reshape(-1)
         crow.index_copy_(0, idx.to(torch.int64), nnz_row)
         totals.append(nnz_row.sum(dtype=torch.int64))
@@ -603,44 +1118,131 @@ def bucketed_extract_static(slabs, ext_src, *, nnz_c: int):
     return ccol, cval
 
 
-def run_bucketed(plan: BucketPlan, a_val, b_col, b_val, *, route: str):
+def extract_stream(slabs, ext: ExtractPlan) -> torch.Tensor:
+    """The windowed extraction's planar source stream: [bias | column
+    plane | value word planes], each plane ``ext.area_pad`` words, then
+    the window slack; i32[rows, 128]."""
+    cols = _flat([s[0].reshape(-1) for s in slabs])
+    vals = _flat([s[1].reshape(-1) for s in slabs])
+    area = cols.numel()
+    words = vals.view(torch.int32).view(area, -1)
+    if words.shape[1] != ext.nplanes - 1:
+        raise ValueError(f"{ext.nplanes - 1} value words planned, "
+                         f"{words.shape[1]} given")
+    nrows = ((_FILL_BIAS_WORDS + ext.nplanes * ext.area_pad) // 128
+             + ext.wrows + rf.PAD_ROWS)
+    stream = torch.empty(nrows * 128, dtype=torch.int32, device=cols.device)
+    base = _FILL_BIAS_WORDS
+    stream[:base] = 0
+    for p in range(ext.nplanes):
+        lo = base + p * ext.area_pad
+        stream[lo: lo + area] = cols if p == 0 else words[:, p - 1]
+        stream[lo + area: lo + ext.area_pad] = 0
+    stream[base + ext.nplanes * ext.area_pad:] = 0
+    return stream.view(nrows, 128)
+
+
+def _ext_dev(ext: ExtractPlan, device) -> tuple:
+    if ext.dev is None or ext.device != device:
+        ext.device = device
+        ext.dev = (torch.as_tensor(ext.win_row).to(device),
+                   torch.as_tensor(ext.runs).to(device))
+    return ext.dev
+
+
+def bucketed_extract_windowed(slabs, ext: ExtractPlan, *, nnz_cap: int,
+                              nnz_c):
+    """Windowed extraction (the port of ``bucketed_extract_mosaic``,
+    ``mh_spgemm_tpu/ops/bucketed.py:2179``): each C row's packed slab
+    span is copied into the CSR arrays by ``ragged_fill`` runs, one
+    launch over all output chunks, one run per row and plane.  The value
+    planes are the raw words of the value type, so the copy is exact (the
+    JAX package's Dekker split and its overflow fallback have no cause
+    here).  ``nnz_c`` (an int, or a device scalar such as ``cptr[m]``)
+    bounds the valid outputs; returns (col, val), ``nnz_cap`` long."""
+    dev = slabs[0][0].device
+    win_row, runs = _ext_dev(ext, dev)
+    stream = extract_stream(slabs, ext)
+    cap_rows = ext.nplanes * ext.cap_slots // 128
+    ws = rf.ragged_fill(win_row, runs, stream, out_rows=cap_rows,
+                        nplanes=ext.nplanes,
+                        src_stride_rows=ext.area_pad // 128,
+                        dst_stride=ext.cap_slots)
+    w = ws.view(ext.nchunks, -1)
+    cap = ext.cap_slots
+    ccol = w[:, :cap].reshape(-1)[:nnz_cap]
+    if ext.nplanes == 3:            # the two raw words of each f64 value
+        cval = torch.stack([w[:, cap: 2 * cap], w[:, 2 * cap: 3 * cap]],
+                           dim=-1).view(-1)[: 2 * nnz_cap].view(
+                               torch.float64)
+    else:
+        cval = w[:, cap: 2 * cap].reshape(-1)[:nnz_cap].view(torch.float32)
+    if isinstance(nnz_c, int):
+        ccol[nnz_c:] = 0
+        cval[nnz_c:] = 0
+        return ccol, cval
+    good = torch.arange(nnz_cap, device=dev) < nnz_c
+    return (torch.where(good, ccol, 0),
+            torch.where(good, cval, torch.zeros((), dtype=cval.dtype,
+                                                device=dev)))
+
+
+def run_bucketed(plan: BucketPlan, a_val, b_col, b_val, pairs2d=None, *,
+                 route: str):
     """Cold main stage: slabs plus their row counts.  Returns (crow,
     cptr, totals, slabs)."""
     upload_plan(plan, a_val.device)
-    slabs = bucketed_main(plan, a_val, b_col, b_val, route=route)
+    slabs = bucketed_main(plan, a_val, b_col, b_val, pairs2d, route=route)
     crow, cptr, totals = bucketed_counts(plan, slabs)
     return crow, cptr, totals, slabs
 
 
-def run_bucketed_fused(plan: BucketPlan, a_val, b_col, b_val, *,
-                       route: str):
-    """Warm path (the plan knows nnz(C)): main stage then static
-    extraction, queued back to back with no host sync between them.
-    Returns (cptr, ccol, cval)."""
-    assert plan.nnz_cap is not None, "fused path needs a warm plan"
-    upload_plan(plan, a_val.device)
+def extract_warm(plan: BucketPlan, slabs):
+    """Extraction of a warm plan (nnz(C) known on the host): the windowed
+    copy when the plan has one, else the static gather.  Returns
+    (ccol, cval)."""
+    if plan.ext is not None:
+        return bucketed_extract_windowed(slabs, plan.ext,
+                                         nnz_cap=plan.nnz_cap,
+                                         nnz_c=plan.nnz_c)
+    return bucketed_extract_static(slabs, static_dev(plan)[0],
+                                   nnz_c=plan.nnz_c)
+
+
+def static_dev(plan: BucketPlan) -> tuple:
+    """The host-evaluated extraction operands (src, cptr) on the plan's
+    device, uploaded once."""
     if plan.ext_static_dev is None:
         plan.ext_static_dev = (
             torch.as_tensor(plan.ext_src_h).to(plan.device),
             torch.as_tensor(plan.cptr_h).to(plan.device))
-    ext_src, cptr = plan.ext_static_dev
-    slabs = bucketed_main(plan, a_val, b_col, b_val, route=route)
-    ccol, cval = bucketed_extract_static(slabs, ext_src, nnz_c=plan.nnz_c)
-    return cptr, ccol, cval
+    return plan.ext_static_dev
+
+
+def run_bucketed_fused(plan: BucketPlan, a_val, b_col, b_val, pairs2d=None,
+                       *, route: str):
+    """Warm path (the plan knows nnz(C)): main stage then extraction,
+    queued back to back with no host sync between them.  Returns (cptr,
+    ccol, cval)."""
+    assert plan.nnz_cap is not None, "fused path needs a warm plan"
+    upload_plan(plan, a_val.device)
+    slabs = bucketed_main(plan, a_val, b_col, b_val, pairs2d, route=route)
+    ccol, cval = extract_warm(plan, slabs)
+    return static_dev(plan)[1], ccol, cval
 
 
 def finish_bucketed(plan: BucketPlan, main_out):
     """Extraction after a cold main stage.  The first run fetches the
-    per-class totals and per-row counts (the one host sync), fixes the
-    output capacity and evaluates the warm extraction operands."""
-    crow, cptr, totals, slabs = main_out
+    per-row counts (the one host sync), fixes the output capacity and
+    evaluates the warm extraction operands, the windowed plan among
+    them."""
+    crow, cptr, _, slabs = main_out
     if plan.class_caps is None:
-        t = totals.cpu().numpy()
-        plan.class_caps = tuple(quantize(int(x)) if x else 1 for x in t)
-        plan.nnz_c = int(t.sum())
-        plan.nnz_cap = quantize(max(1, plan.nnz_c))
-        plan.crow_h = crow[: plan.m].cpu().numpy().astype(np.int32)
-        attach_static_extract(plan)
-    ccol, cval = bucketed_extract(slabs, plan.dev_slab_start, cptr,
-                                  m=plan.m_cap, nnz_cap=plan.nnz_cap)
+        warm_plan_from_crow(plan, crow[: plan.m].cpu().numpy())
+    if plan.ext is not None:
+        ccol, cval = bucketed_extract_windowed(
+            slabs, plan.ext, nnz_cap=plan.nnz_cap, nnz_c=cptr[plan.m_cap])
+    else:
+        ccol, cval = bucketed_extract(slabs, plan.dev_slab_start, cptr,
+                                      m=plan.m_cap, nnz_cap=plan.nnz_cap)
     return cptr, ccol, cval

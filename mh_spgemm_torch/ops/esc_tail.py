@@ -1,6 +1,7 @@
-"""Flat ESC tail: sort + accumulate + left-pack over aligned pow2
-segments — the port of ``mh_spgemm_tpu/ops/esc_tail.py:234``
-(``esc_tail_flat``).
+"""ESC tail: sort + accumulate + left-pack over aligned pow2 segments —
+the port of ``mh_spgemm_tpu/ops/esc_tail.py:234`` (``esc_tail_flat``) and
+``:286`` (``esc_tail``, the ``[rows, w2]`` slab form with a per-row
+count).
 
 Input: ``keys`` int32[slots] (2^31-1 marks an empty slot) and ``vals``
 [slots] in the port's value type (float64, or float32), with
@@ -11,8 +12,15 @@ segment's output count.  The TPU kernel carried f64 values as double-f32
 (hi, lo) pairs; the card has native f64, so the port computes in its own
 value type.
 
-:func:`esc_tail_flat` launches the CUDA kernel ``csrc/esc_tail.cu`` for
-CUDA tensors and takes :func:`esc_tail_flat_plain` only for CPU tensors.
+The slab form :func:`esc_tail` is the same function on ``[rows, w2]``
+with one addition: slot j of row r counts as empty (key 2^31-1, value 0)
+when ``j >= row_len[r]``, before the sort.  The fill frontend's slabs
+hold undefined words past each row's products, so the count, not the
+keys, says where a row ends.
+
+:func:`esc_tail_flat` and :func:`esc_tail` launch the CUDA kernel
+``csrc/esc_tail.cu`` for CUDA tensors and take their plain versions only
+for CPU tensors.
 """
 
 from __future__ import annotations
@@ -34,28 +42,58 @@ def supported_w2(w: int) -> bool:
     return 2 <= w <= _MAX_W2 and (w & (w - 1)) == 0
 
 
+def _tail_plain(K: torch.Tensor, V: torch.Tensor):
+    """The tail on ``[segments, w2]`` in torch ops, step for step the
+    kernel's: the same bitonic network (ties never swap), then the same
+    Hillis-Steele passes, so values are added in the kernel's order (and
+    the TPU kernel's).  Returns (packed keys, packed values, counts)."""
+    S, w2 = K.shape
+    dev = K.device
+    idx = torch.arange(w2, device=dev)
+    k = 2
+    while k <= w2:
+        j = k >> 1
+        while j >= 1:
+            partner = idx ^ j
+            pk, pv = K[:, partner], V[:, partner]
+            # the lower slot of a pair takes the minimum on an ascending
+            # stage (bit k of its index clear), the upper one the maximum
+            want_min = ((idx & j) == 0) == ((idx & k) == 0)
+            take = torch.where(want_min, pk < K, pk > K)
+            K = torch.where(take, pk, K)
+            V = torch.where(take, pv, V)
+            j >>= 1
+        k <<= 1
+    d = 1
+    while d < w2:
+        same = torch.zeros_like(K, dtype=torch.bool)
+        same[:, d:] = K[:, d:] == K[:, :-d]
+        prev = torch.zeros_like(V)
+        prev[:, d:] = V[:, :-d]
+        V = torch.where(same, V + prev, V)
+        d <<= 1
+    valid = K < I32_MAX
+    head = valid.clone()
+    head[:, 1:] &= K[:, 1:] != K[:, :-1]
+    end = valid.clone()
+    end[:, :-1] &= K[:, 1:] != K[:, :-1]
+    rank = torch.cumsum(head, dim=1, dtype=torch.int64) - 1
+    counts = head.sum(dim=1, dtype=torch.int32)
+    dst = (torch.arange(S, device=dev, dtype=torch.int64)[:, None] * w2
+           + rank)[end]
+    out_k = torch.full((S * w2,), I32_MAX, dtype=torch.int32, device=dev)
+    out_v = torch.zeros(S * w2, dtype=V.dtype, device=dev)
+    out_k[dst] = K[end]
+    out_v[dst] = V[end]
+    return out_k, out_v, counts
+
+
 def esc_tail_flat_plain(keys: torch.Tensor, vals: torch.Tensor, *,
                         w2: int):
     """Plain PyTorch version of the flat tail (same contract as
-    :func:`esc_tail_flat`): a stable sort per segment, a run index per
-    slot, and ``index_add_`` of each run into its packed slot."""
-    slots = keys.shape[0]
-    S = slots // w2
-    dev = keys.device
-    sk, order = torch.sort(keys.view(S, w2), dim=1, stable=True)
-    sv = torch.gather(vals.view(S, w2), 1, order)
-    valid = sk < I32_MAX
-    head = valid.clone()
-    head[:, 1:] &= sk[:, 1:] != sk[:, :-1]
-    run = torch.cumsum(head, dim=1, dtype=torch.int64) - 1
-    counts = head.sum(dim=1, dtype=torch.int32)
-    dst = (torch.arange(S, device=dev, dtype=torch.int64)[:, None] * w2
-           + run)
-    out_v = torch.zeros(slots, dtype=vals.dtype, device=dev)
-    out_v.index_add_(0, dst[valid], sv[valid])
-    out_k = torch.full((slots,), I32_MAX, dtype=torch.int32, device=dev)
-    out_k[dst[head]] = sk[head]
-    return out_k, out_v, counts
+    :func:`esc_tail_flat`, same order of additions)."""
+    S = keys.shape[0] // w2
+    return _tail_plain(keys.view(S, w2), vals.view(S, w2))
 
 
 def _check(keys: torch.Tensor, vals: torch.Tensor, w2: int) -> None:
@@ -75,14 +113,15 @@ def _check(keys: torch.Tensor, vals: torch.Tensor, w2: int) -> None:
         raise ValueError("keys and values must be contiguous")
 
 
-def _kernel_fn(vdtype: torch.dtype):
+def _kernel_fn(vdtype: torch.dtype, slab: bool = False):
     lib = _build.load("esc_tail")
-    name = ("esc_tail_flat_f64" if vdtype == torch.float64
-            else "esc_tail_flat_f32")
+    name = ("esc_tail" if slab else "esc_tail_flat") + (
+        "_f64" if vdtype == torch.float64 else "_f32")
     fn = getattr(lib, name)
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, ctypes.c_longlong, ctypes.c_int, p, p]
+        fn.argtypes = ([p] * (6 if slab else 5)
+                       + [ctypes.c_longlong, ctypes.c_int, p, p])
         fn.restype = ctypes.c_int
         lib.esc_tail_flat_scratch_bytes.argtypes = [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
@@ -128,3 +167,72 @@ def esc_tail_flat(keys: torch.Tensor, vals: torch.Tensor, *, w2: int):
 
 
 esc_tail_flat.launches = 0
+
+
+def esc_tail_plain(keys: torch.Tensor, vals: torch.Tensor,
+                   row_len: torch.Tensor, *, w2: int):
+    """Plain PyTorch version of :func:`esc_tail` (same contract, same
+    order of additions): mask the slots past each row's count, then the
+    flat tail's steps."""
+    live = (torch.arange(w2, device=keys.device)[None, :]
+            < row_len.to(torch.int64)[:, None])
+    oK, oV, cnt = _tail_plain(
+        torch.where(live, keys, I32_MAX),
+        torch.where(live, vals, torch.zeros((), dtype=vals.dtype,
+                                            device=vals.device)))
+    return oK.view(keys.shape), oV.view(keys.shape), cnt
+
+
+def esc_tail(keys: torch.Tensor, vals: torch.Tensor, row_len: torch.Tensor,
+             *, w2: int):
+    """Tail over ``[rows, w2]`` slabs with per-row counts; returns (packed
+    keys int32 [rows, w2], packed values [rows, w2], per-row output
+    counts int32 [rows]).  Slots at or past ``row_len[r]`` are empty
+    whatever they hold.
+
+    CUDA tensors go through the kernel (``csrc/esc_tail.cu``) on the
+    current stream, and each launch adds one to ``esc_tail.launches``;
+    CPU tensors take :func:`esc_tail_plain`.  Any other device raises."""
+    if keys.dim() != 2 or keys.shape[1] != w2:
+        raise ValueError(f"keys must be [rows, {w2}], got "
+                         f"{tuple(keys.shape)}")
+    if row_len.dtype != torch.int32 or row_len.shape != keys.shape[:1] \
+            or row_len.device != keys.device \
+            or not row_len.is_contiguous():
+        raise ValueError("row_len must be a contiguous int32 [rows] tensor "
+                         "on the keys' device")
+    if vals.shape != keys.shape or not (keys.is_contiguous()
+                                        and vals.is_contiguous()):
+        raise ValueError("keys and values must be contiguous and of one "
+                         "shape")
+    _check(keys.view(-1), vals.view(-1), w2)
+    if keys.device.type == "cpu":
+        return esc_tail_plain(keys, vals, row_len, w2=w2)
+    if keys.device.type != "cuda":
+        raise DeviceError(f"esc_tail has no kernel for {keys.device.type} "
+                          "tensors")
+    slots = keys.numel()
+    out_k = torch.empty_like(keys)
+    out_v = torch.empty_like(vals)
+    counts = torch.empty(keys.shape[0], dtype=torch.int32,
+                         device=keys.device)
+    if slots == 0:
+        return out_k, out_v, counts
+    lib, fn = _kernel_fn(vals.dtype, slab=True)
+    nbytes = lib.esc_tail_flat_scratch_bytes(slots, w2, vals.element_size())
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=keys.device)
+               if nbytes else None)
+    with torch.cuda.device(keys.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(keys.data_ptr(), vals.data_ptr(), row_len.data_ptr(),
+                out_k.data_ptr(), out_v.data_ptr(), counts.data_ptr(), slots,
+                w2, scratch.data_ptr() if scratch is not None else None,
+                stream)
+    if rc != 0:
+        raise DeviceError(f"esc_tail launch failed: CUDA error {rc} "
+                          f"(rows={keys.shape[0]}, w2={w2}, {vals.dtype})")
+    esc_tail.launches += 1
+    return out_k, out_v, counts
+
+
+esc_tail.launches = 0

@@ -1,7 +1,8 @@
 """Pipeline drivers of the PyTorch port: the bucketed engine end to end
 (``spgemm_bucketed``), its row-chunked fallback for product streams past
 int32 indexing (``spgemm_chunked``), the block-dense engine
-(``spgemm_blockdense``), the per-matrix engine choice of ``mode="auto"``
+(``spgemm_blockdense``), the class-based masked engine
+(``spgemm_masked``), the per-matrix engine choice of ``mode="auto"``
 (``choose_engine``), and the CSR-in / CSR-out ``spgemm_host``.
 
 Every entry point runs on the card (``device=None`` means ``"cuda"``,
@@ -18,11 +19,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .config import DEFAULT_CONFIG, SpGEMMConfig, check_supported
+from .config import DEFAULT_CONFIG, SpGEMMConfig, check_supported, fill_mode
 from .csr import CSR, DeviceCSR
 from .errors import DeviceError, ShapeMismatchError, SpGEMMError, require
 from .ops import blockdense as blockdense_ops
 from .ops import bucketed as bucketed_ops
+from .ops import masked_classes as masked_ops
 from .timing import PhaseTimer, Timing, device_fence
 
 _NP_DTYPES = {torch.float64: np.float64, torch.float32: np.float32}
@@ -65,7 +67,8 @@ def resolve_device(device=None) -> torch.device:
 @dataclasses.dataclass
 class BucketedState:
     """Cached per-(A, B) state: the bucket plan (with its device tensors
-    and learned capacities) and the operands on the device."""
+    and learned capacities) and the operands on the device, the planar
+    fill stream of B among them when a class fills."""
 
     plan: bucketed_ops.BucketPlan
     device: torch.device
@@ -73,6 +76,7 @@ class BucketedState:
     a_val: Optional[torch.Tensor] = None
     b_col: Optional[torch.Tensor] = None
     b_val: Optional[torch.Tensor] = None
+    pairs: Optional[torch.Tensor] = None
 
 
 def _vwords(config: SpGEMMConfig) -> int:
@@ -83,15 +87,35 @@ def prepare_bucketed_state(A: CSR, B: CSR,
                            config: SpGEMMConfig = DEFAULT_CONFIG,
                            device=None) -> BucketedState:
     """Host-side planning for the bucketed engine (the ``state=None``
-    branch of :func:`spgemm_bucketed`).  ``config.min_bucket_width`` has
-    no effect here: precomputed plans use power-of-two widths, as in the
-    JAX package."""
+    branch of :func:`spgemm_bucketed`): precomputed-slot classes on the
+    power-of-two grid, and fill classes where ``config.dma_fill``
+    resolves for ``device`` to allow them (:func:`config.fill_mode`).
+    ``config.min_bucket_width`` does not shape these plans (it shapes the
+    masked engine's)."""
     route = check_supported(config)
+    dev = resolve_device(device)
     plan = bucketed_ops.plan_buckets(
-        A.ptr, A.col, B.ptr, area_cap=config.bucket_area_cap,
-        vwords=_vwords(config))
-    return BucketedState(plan=plan, device=resolve_device(device),
-                         route=route)
+        A.ptr, A.col, B.ptr, min_width=config.min_bucket_width,
+        area_cap=config.bucket_area_cap, vwords=_vwords(config),
+        dma_fill=fill_mode(config, dev), precompute=True)
+    return BucketedState(plan=plan, device=dev, route=route)
+
+
+def _upload_operands(state, A: CSR, B: CSR, vdtype: torch.dtype) -> None:
+    """Values, B's columns and (for a plan with fill classes) B's planar
+    fill stream on the state's device, once."""
+    np_dt = _NP_DTYPES[vdtype]
+    dev = state.device
+    state.a_val = torch.from_numpy(A.val.astype(np_dt)).to(dev)
+    state.b_val = torch.from_numpy(B.val.astype(np_dt)).to(dev)
+    state.b_col = torch.from_numpy(
+        np.ascontiguousarray(B.col, dtype=np.int32)).to(dev)
+    plan = state.plan
+    if bucketed_ops.needs_pairs(plan):
+        state.pairs = torch.from_numpy(bucketed_ops.build_pairs_planar(
+            B.col, B.val.astype(np_dt), plan.vwords,
+            bucketed_ops.pairs_wrows_max(plan))).to(dev)
+    bucketed_ops.upload_plan(plan, dev)
 
 
 def spgemm_bucketed(A: CSR, B: CSR,
@@ -119,12 +143,7 @@ def spgemm_bucketed(A: CSR, B: CSR,
 
     with PhaseTimer.phase(timing, "mem_alloc"):
         if state.a_val is None:
-            np_dt = _NP_DTYPES[config.vdtype]
-            state.a_val = torch.from_numpy(A.val.astype(np_dt)).to(dev)
-            state.b_val = torch.from_numpy(B.val.astype(np_dt)).to(dev)
-            state.b_col = torch.from_numpy(
-                np.ascontiguousarray(B.col, dtype=np.int32)).to(dev)
-            bucketed_ops.upload_plan(plan, dev)
+            _upload_operands(state, A, B, config.vdtype)
 
     if A.nnz == 0 or B.nnz == 0 or not plan.classes:
         C = DeviceCSR(M=A.M, N=B.N,
@@ -138,7 +157,7 @@ def spgemm_bucketed(A: CSR, B: CSR,
     if plan.class_caps is not None and not config.profile:
         with PhaseTimer.phase(timing, "calculate_c_nnz"):
             cptr, ccol, cval = bucketed_ops.run_bucketed_fused(
-                plan, state.a_val, state.b_col, state.b_val,
+                plan, state.a_val, state.b_col, state.b_val, state.pairs,
                 route=state.route)
         with PhaseTimer.phase(timing, "numeric"):
             _fence(dev)
@@ -147,7 +166,8 @@ def spgemm_bucketed(A: CSR, B: CSR,
 
     with PhaseTimer.phase(timing, "calculate_c_nnz"):
         main_out = bucketed_ops.run_bucketed(
-            plan, state.a_val, state.b_col, state.b_val, route=state.route)
+            plan, state.a_val, state.b_col, state.b_val, state.pairs,
+            route=state.route)
         if config.profile:
             _fence(dev)                # split main vs extraction exactly
 
@@ -267,6 +287,7 @@ def prepare_blockdense_state(A: CSR, B: CSR,
             "block-dense plan infeasible (empty, a pair stream over the "
             "budget, or a strip slab past int32); use mode='bucketed'")
     plan.route = _blockdense_route(config)
+    plan.dma_fill = fill_mode(config, dev)     # windowed extraction gate
     return BlockDenseState(plan=plan, device=dev, vdtype=config.vdtype)
 
 
@@ -332,16 +353,122 @@ def spgemm_blockdense(A: CSR, B: CSR,
                      nnz_true=plan.nnz_c), state
 
 
-def choose_engine(A: CSR, B: CSR, config: SpGEMMConfig) -> str:
-    """``"blockdense"`` or ``"bucketed"`` for C = A @ B, by the JAX
-    package's host cost models (TPU v5e constants, not yet measured on
-    the H100): the bucketed estimate (``ops/bucketed.estimate_cost_s``)
-    against a sampled block-dense estimate, and, only when that is
-    within 3x, against the exact block-dense plan's cost."""
+@dataclasses.dataclass
+class MaskedState:
+    """Cached per-(A, B) state of the masked engine: the bucket plan
+    (``precompute=False``), the per-class tile-slab extras, B's tile
+    counts and tile stream on the host, and the operands on the device
+    once the first call has uploaded them."""
+
+    plan: bucketed_ops.BucketPlan
+    extras: list
+    tiles_per_row: np.ndarray
+    device: torch.device
+    vdtype: torch.dtype
+    tile_pairs: Optional[np.ndarray] = None
+    ops: Optional[dict] = None
+
+
+def prepare_masked_state(A: CSR, B: CSR,
+                         config: SpGEMMConfig = DEFAULT_CONFIG,
+                         device=None) -> MaskedState:
+    """Host planning for the masked engine (the ``state=None`` branch of
+    :func:`spgemm_masked`): the bucketed planner with ``precompute=False``
+    (the 1.5x width grid from ``config.min_bucket_width``; gather or fill
+    classes) and the tile-slab extras."""
     check_supported(config)
+    dev = resolve_device(device)
+    fill = fill_mode(config, dev)
+    plan = bucketed_ops.plan_buckets(
+        A.ptr, A.col, B.ptr, min_width=config.min_bucket_width,
+        area_cap=config.bucket_area_cap, vwords=_vwords(config),
+        dma_fill=fill, precompute=False)
+    tpr, extras, tile_pairs = masked_ops.plan_masked_extras(
+        plan, A.ptr, A.col, B.ptr, B.col, dma_fill=fill)
+    return MaskedState(plan=plan, extras=extras, tiles_per_row=tpr,
+                       device=dev, vdtype=config.vdtype,
+                       tile_pairs=tile_pairs)
+
+
+def spgemm_masked(A: CSR, B: CSR,
+                  config: SpGEMMConfig = DEFAULT_CONFIG,
+                  timing: Optional[Timing] = None,
+                  state: Optional[MaskedState] = None,
+                  device=None) -> tuple[DeviceCSR, MaskedState]:
+    """Masked SpGEMM, C = A @ B, on the class machinery
+    (ops/masked_classes.py): B's 32-column tile bitmap, an exact OR /
+    popcount symbolic stage per row class, then the numeric stage.
+    Returns (C on the device, reusable state).  The first call plans,
+    uploads and fetches nnz(C) per row once; a call with the returned
+    ``state`` runs main stage and extraction with no sync between."""
+    require(A.N == B.M, ShapeMismatchError, "A.N must equal B.M")
+    timing = timing if timing is not None else Timing()
+    check_supported(config)
+    with PhaseTimer.phase(timing, "symbolic_binning"):
+        if state is None:
+            state = prepare_masked_state(A, B, config, device)
+        elif device is not None:
+            require(resolve_device(device) == state.device, SpGEMMError,
+                    "state was prepared for another device")
+        require(state.vdtype == config.vdtype, SpGEMMError,
+                "state was prepared under another value_dtype")
+        plan = state.plan
+    dev = state.device
+
+    if A.nnz == 0 or B.nnz == 0 or not plan.classes:
+        C = DeviceCSR(M=A.M, N=B.N,
+                      ptr=torch.zeros(A.M + 1, dtype=torch.int32,
+                                      device=dev),
+                      col=torch.zeros(0, dtype=torch.int32, device=dev),
+                      val=torch.zeros(0, dtype=config.vdtype, device=dev),
+                      nnz_true=0)
+        return C, state
+
+    # B's tile bitmap (excluded from the total, like the reference)
+    with PhaseTimer.phase(timing, "form_mask_matrix_b"):
+        if state.ops is None:
+            state.ops = masked_ops.upload_operands(
+                A, B, plan, state.extras, state.tiles_per_row,
+                state.tile_pairs, config.vdtype, dev)
+
+    if plan.class_caps is not None and not config.profile:
+        with PhaseTimer.phase(timing, "calculate_c_nnz"):
+            cptr, ccol, cval = masked_ops.masked_fused(plan, state.extras,
+                                                       state.ops)
+        with PhaseTimer.phase(timing, "numeric"):
+            _fence(dev)
+        return DeviceCSR(M=A.M, N=B.N, ptr=cptr, col=ccol, val=cval,
+                         nnz_true=plan.nnz_c), state
+
+    with PhaseTimer.phase(timing, "calculate_c_nnz"):
+        main_out = masked_ops.masked_main(plan, state.extras, state.ops)
+        if config.profile:
+            _fence(dev)                # split main vs extraction exactly
+
+    with PhaseTimer.phase(timing, "malloc_c_col_val"):
+        cptr, ccol, cval = bucketed_ops.finish_bucketed(plan, main_out)
+
+    with PhaseTimer.phase(timing, "numeric"):
+        _fence(dev)
+    return DeviceCSR(M=A.M, N=B.N, ptr=cptr, col=ccol, val=cval,
+                     nnz_true=plan.nnz_c), state
+
+
+def choose_engine(A: CSR, B: CSR, config: SpGEMMConfig,
+                  device=None) -> str:
+    """``"blockdense"`` or ``"bucketed"`` for C = A @ B on ``device`` (the
+    card when None), by the JAX package's host cost models (TPU v5e
+    constants, not yet measured on the H100): the bucketed estimate
+    (``ops/bucketed.estimate_cost_s``, which prices long-span classes at
+    the fill frontend's cost on a CUDA device, where the JAX package does
+    so on the TPU) against a sampled block-dense estimate, and, only when
+    that is within 3x, against the exact block-dense plan's cost."""
+    check_supported(config)
+    on_cuda = torch.device("cuda" if device is None else device).type \
+        == "cuda"
     bkt_s = bucketed_ops.estimate_cost_s(
         A.ptr, A.col, B.ptr, min_width=config.min_bucket_width,
-        vwords=_vwords(config))
+        vwords=_vwords(config), fill=on_cuda)
     oz = _blockdense_route(config) == "kernel"
     est = blockdense_ops.estimate_blockdense_cost(
         A.ptr, A.col, B.ptr, B.col, A.M, A.N, config.vdtype, ozaki=oz)
@@ -368,10 +495,10 @@ def spgemm_host(A: CSR, B: Optional[CSR] = None,
         B = A.transpose() if (config.aat and not A.is_symmetric) else A
     mode = config.mode
     if mode == "auto":
-        mode = choose_engine(A, B, config)
-    if mode == "blockdense":
-        C, _ = spgemm_blockdense(A, B, config=config, timing=timing,
-                                 device=dev)
+        mode = choose_engine(A, B, config, device=dev)
+    if mode in ("blockdense", "masked"):
+        run = spgemm_blockdense if mode == "blockdense" else spgemm_masked
+        C, _ = run(A, B, config=config, timing=timing, device=dev)
         return C.host()
     try:
         C, _ = spgemm_bucketed(A, B, config=config, timing=timing,

@@ -14,6 +14,10 @@ package, on the CPU.
   1e-4 (f32), where the engines add the same products in other orders.
 - State: warm calls reuse the plan and the densified operands; a JAX plan
   carried across (``blockplan_from_arrays``) gives the same C.
+- Windowed extraction: with ``dma_fill="on"`` (JAX "interpret") the
+  strips are copied into CSR by ``ragged_fill`` runs; the extraction plan
+  equals the JAX package's array for array and C equals its C and the
+  oracle's; ``warm_blockplan_from_crow`` rebuilds the same plan.
 """
 
 import functools
@@ -37,6 +41,7 @@ from mh_spgemm_torch.errors import SpGEMMError
 from mh_spgemm_torch.ops import blockdense as tbd
 from mh_spgemm_torch.ops import bucketed as tbk
 from mh_spgemm_torch.ops import pair_matmul as tpm
+from mh_spgemm_torch.ops import ragged_fill as trf
 from mh_spgemm_torch.pipeline import BlockDenseState
 
 CPU = torch.device("cpu")
@@ -280,3 +285,62 @@ def test_kernel_route_block_sums():
     ends = torch.from_numpy(plan.end_pair).long()
     assert torch.allclose(kv, vs[ends], rtol=1e-12, atol=1e-12)
     assert torch.equal(kp, ps[ends])
+
+
+@functools.lru_cache(maxsize=None)
+def jax_windowed(name: str, value_dtype: str):
+    A, B = PAIRS[name]()
+    cfg = jm.SpGEMMConfig(mode="blockdense", value_dtype=value_dtype,
+                          dma_fill="interpret")
+    C, state = jspgemm_blockdense(jcsr(A), jcsr(A if B is None else B),
+                                  config=cfg)
+    return C.host(), state.plan
+
+
+@pytest.mark.parametrize("value_dtype", ["float64", "float32"])
+@pytest.mark.parametrize("name", ["banded", "rect"])
+def test_windowed_extraction_matches_jax(name, value_dtype):
+    A, B = PAIRS[name]()
+    B = A if B is None else B
+    tol = 1e-9 if value_dtype == "float64" else 1e-4
+    cfg = SpGEMMConfig(mode="blockdense", value_dtype=value_dtype,
+                       dma_fill="on")
+    J, jplan_ = jax_windowed(name, value_dtype)
+    ref = reference(A, B, False)
+    before = trf.ragged_fill.launches
+    state = None
+    for call in range(3):
+        C, state = spgemm_blockdense(A, B, config=cfg, state=state,
+                                     device="cpu")
+        H = C.host()
+        assert np.array_equal(H.ptr, J.ptr) and np.array_equal(H.col, J.col)
+        assert H.equals(J, tol=tol) and H.equals(ref, tol=tol), call
+    te, je = state.plan.ext, jplan_.ext
+    assert te is not None and je is not None
+    for f in ("nplanes", "nchunks", "cap_slots", "wrows", "area_pad"):
+        assert getattr(te, f) == getattr(je, f), f
+    assert np.array_equal(te.win_row, je.win_row)
+    assert np.array_equal(te.runs, je.runs)
+    assert trf.ragged_fill.launches == before
+
+
+@pytest.mark.parametrize("dma_fill", ["auto", "on"])
+def test_warm_blockplan_from_crow(dma_fill):
+    """A fresh plan warmed from the learned counts takes the warm path at
+    once, with the windowed plan exactly where the fill mode allows it
+    (on the CPU "auto" resolves to off)."""
+    A = gen.banded(300, band=11, nnz_per_row=6, seed=7)
+    cfg = SpGEMMConfig(mode="blockdense", dma_fill=dma_fill)
+    _, state = spgemm_blockdense(A, A, config=cfg, device="cpu")
+    plan = state.plan
+    fresh = tplan(A, A, max_pairs=1 << 18)
+    fresh.dma_fill = plan.dma_fill
+    tbd.warm_blockplan_from_crow(fresh, plan.crow_h, plan.ext_area,
+                                 plan.ext_nplanes)
+    assert (fresh.nnz_c, fresh.nnz_cap) == (plan.nnz_c, plan.nnz_cap)
+    assert (fresh.ext is None) == (dma_fill == "auto") == (plan.ext is None)
+    if fresh.ext is not None:
+        assert np.array_equal(fresh.ext.runs, plan.ext.runs)
+    st = BlockDenseState(plan=fresh, device=CPU, vdtype=torch.float64)
+    C, _ = spgemm_blockdense(A, A, config=cfg, state=st)
+    assert C.host().equals(oracle_spgemm(A, A), tol=1e-9)

@@ -92,8 +92,24 @@ def test_cli_failures_return_1(mtx, capsys):
     assert port_main(["/nonexistent/not_there.mtx", "--device", "cpu"]) == 1
     assert "FAILED" in capsys.readouterr().out
     assert port_main([mtx["band"], "--device", "cpu", "--mode",
-                      "masked"]) == 1
+                      "esc"]) == 1
     assert "MH-SpGEMM failed!!!" in capsys.readouterr().out
+
+
+def test_cli_masked_matches_jax(mtx, capsys):
+    """The masked engine through both CLIs on the band: the check passes
+    and the time-free stats (classes by frontend) agree."""
+    rc, got = run(port_main, mtx["band"], "masked", capsys, "--device",
+                  "cpu")
+    assert rc == 0 and got["check"] == "pass"
+    jrc, want = run(jax_main, mtx["band"], "masked", capsys)
+    assert jrc == 0 and want["check"] == "pass"
+    assert (got["nnz_C"], got["intprod"]) == (want["nnz_C"],
+                                              want["intprod"])
+    for k in TIMED:
+        got["stats"].pop(k, None)
+        want["stats"].pop(k, None)
+    assert got["stats"] == want["stats"]
 
 
 def test_cli_needs_cuda_by_default(mtx, capsys):

@@ -1,7 +1,9 @@
-"""CUDA-only tests of the PyTorch port: each kernel (esc_tail_flat, the two
-pair matmuls, block_gather) against its plain PyTorch version on the card,
-and the bucketed and block-dense engines on the card against the scipy
-oracle.  They skip where there is no CUDA device.
+"""CUDA-only tests of the PyTorch port: each kernel (esc_tail_flat and its
+slab form esc_tail, ragged_fill, the two pair matmuls, block_gather)
+against its plain PyTorch version on the card, and the bucketed (with and
+without the fill frontend), block-dense (with the windowed extraction)
+and masked engines on the card against the scipy oracle.  They skip where
+there is no CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine with only torch: ``python -m pytest --noconftest
@@ -14,9 +16,12 @@ import torch
 
 from mh_spgemm_torch import SpGEMMConfig, oracle_spgemm
 from mh_spgemm_torch.bench import gen
+from mh_spgemm_torch.ops import bucketed as bk
 from mh_spgemm_torch.ops import esc_tail as et
 from mh_spgemm_torch.ops import pair_matmul as pm
-from mh_spgemm_torch.pipeline import spgemm_blockdense, spgemm_bucketed
+from mh_spgemm_torch.ops import ragged_fill as rf
+from mh_spgemm_torch.pipeline import (spgemm_blockdense, spgemm_bucketed,
+                                      spgemm_masked)
 
 I32_MAX = 2**31 - 1
 
@@ -144,3 +149,106 @@ def test_blockdense_on_card(cuda, value_dtype):
         assert C.host().equals(ref, tol=tol)
     assert values.launches > before[0]
     assert pm.pair_matmul_f32.launches > before[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("w2", [2, 8, 256, 2048, 16384])
+def test_slab_tail_matches_plain(cuda, w2, dtype):
+    """The slab form with row counts under w2 (NaN and random keys past
+    them), empty and full rows: exact against the plain version, which
+    adds in the kernel's order."""
+    rng = np.random.default_rng(w2)
+    rows = max(3, (1 << 16) // w2)
+    keys = rng.integers(0, max(2, w2 // 4), (rows, w2)).astype(np.int32)
+    row_len = rng.integers(0, w2 + 1, rows).astype(np.int32)
+    row_len[0], row_len[1] = 0, w2
+    vals = rng.standard_normal((rows, w2))
+    vals[np.arange(w2)[None, :] >= row_len[:, None]] = np.nan
+    k, v, rl = (torch.from_numpy(x).to(cuda) for x in (keys, vals, row_len))
+    v = v.to(dtype)
+    before = et.esc_tail.launches
+    out = et.esc_tail(k, v, rl, w2=w2)
+    torch.cuda.synchronize()
+    assert et.esc_tail.launches == before + 1
+    for a, b in zip(out, et.esc_tail_plain(k, v, rl, w2=w2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nplanes", [1, 2, 3])
+def test_ragged_fill_matches_plain(cuda, nplanes):
+    """Runs of a forced fill plan, all chunks in one launch, against the
+    plain version on the covered words (exact)."""
+    A = gen.powerlaw(3000, avg_nnz=8, seed=9)
+    vwords = max(1, nplanes - 1)
+    plan = bk.plan_buckets(A.ptr, A.col, A.ptr, vwords=vwords,
+                           dma_fill="on", area_cap=1 << 14)
+    vals = A.val.astype(np.float64 if vwords == 2 else np.float32)
+    for c in plan.classes:
+        pairs = torch.from_numpy(bk.build_pairs_planar(
+            A.col, vals, vwords, c.wrows)).to(cuda)
+        kw = dict(out_rows=nplanes * c.out_rows, nplanes=nplanes,
+                  src_stride_rows=pairs.shape[0] // (1 + vwords),
+                  dst_stride=c.out_rows * 128)
+        wr = torch.from_numpy(c.win_row).to(cuda)
+        rn = torch.from_numpy(c.runs).to(cuda)
+        before = rf.ragged_fill.launches
+        got = rf.ragged_fill(wr, rn, pairs, **kw)
+        torch.cuda.synchronize()
+        assert rf.ragged_fill.launches == before + 1
+        want = rf.ragged_fill_plain(wr, rn, pairs, **kw)
+        cov = torch.zeros_like(want, dtype=torch.bool).view(c.nchunks, -1)
+        slot = torch.arange(c.W, device=cuda)[None, :] < torch.from_numpy(
+            c.row_len).to(cuda).reshape(-1, 1)
+        slot = slot.reshape(c.nchunks, -1)
+        for p in range(nplanes):
+            lo = p * c.out_rows * 128
+            cov[:, lo: lo + c.rb * c.W] = slot
+        cov = cov.view_as(want)
+        assert torch.equal(got[cov], want[cov])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("value_dtype", ["float64", "float32"])
+def test_fill_engine_on_card(cuda, value_dtype):
+    A = gen.banded(3000, band=40, nnz_per_row=30, seed=2)
+    ref = oracle_spgemm(A, A)
+    cfg = SpGEMMConfig(value_dtype=value_dtype, dma_fill="on")
+    tol = 1e-9 if value_dtype == "float64" else 1e-4
+    before = (rf.ragged_fill.launches, et.esc_tail.launches)
+    state = None
+    for _ in range(3):                        # cold, then warm
+        C, state = spgemm_bucketed(A, A, config=cfg, state=state,
+                                   device=cuda)
+        assert C.host().equals(ref, tol=tol)
+    assert state.plan.ext is not None
+    assert rf.ragged_fill.launches > before[0]
+    assert et.esc_tail.launches > before[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dma_fill", ["auto", "on", "off"])
+def test_masked_on_card(cuda, dma_fill):
+    A = gen.powerlaw(3000, avg_nnz=6, seed=5)
+    ref = oracle_spgemm(A, A)
+    cfg = SpGEMMConfig(mode="masked", dma_fill=dma_fill)
+    state = None
+    for _ in range(3):                        # cold, then warm
+        C, state = spgemm_masked(A, A, config=cfg, state=state, device=cuda)
+        assert C.host().equals(ref, tol=1e-9)
+
+
+@pytest.mark.cuda
+def test_blockdense_windowed_on_card(cuda):
+    A = gen.banded(3000, band=60, nnz_per_row=30, seed=4)
+    ref = oracle_spgemm(A, A)
+    cfg = SpGEMMConfig(mode="blockdense", dma_fill="on")
+    before = rf.ragged_fill.launches
+    state = None
+    for _ in range(3):
+        C, state = spgemm_blockdense(A, A, config=cfg, state=state,
+                                     device=cuda)
+        assert C.host().equals(ref, tol=1e-9)
+    assert state.plan.ext is not None
+    assert rf.ragged_fill.launches > before

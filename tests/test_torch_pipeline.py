@@ -11,9 +11,10 @@ Tolerances: ptr and col exact; values within ``CSR.equals`` tol 1e-9
 in f64; 1e-4 in f32, where the two tails sum in different orders.
 
 Also here: every setting the port does not run yet raises and names its
-ROADMAP item, the modes and ``ozaki`` settings it does run route as
-configured, and ``esc_tail="off"`` routes every class through the sort
-tail.
+ROADMAP item (settings ported since, ``mode="masked"`` and
+``dma_fill="on"``, run and give the oracle's C), the modes and ``ozaki``
+settings it does run route as configured, and ``esc_tail="off"`` routes
+every class through the sort tail.
 """
 
 import numpy as np
@@ -137,10 +138,13 @@ def test_default_device_needs_cuda():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("mode", "masked", "Queue 1 item 9"),
+    # ported since: these run (item None)
+    pytest.param("mode", "masked", None, id="mode-masked-Queue 1 item 9"),
     ("mode", "esc", "Queue 1 item 9"),
-    ("dma_fill", "on", "Queue 2 item 3"),
-    ("dma_fill", "interpret", "Queue 2 item 3"),
+    pytest.param("dma_fill", "on", None, id="dma_fill-on-Queue 2 item 3"),
+    # the Pallas interpreter has no counterpart in the port
+    pytest.param("dma_fill", "interpret", "Pallas interpreter",
+                 id="dma_fill-interpret-Queue 2 item 3"),
     ("planned", "on", "Queue 2 items 4-5"),
     ("planned", "interpret", "Queue 2 items 4-5"),
     ("df32", "on", "ground rules"),
@@ -151,9 +155,16 @@ def test_default_device_needs_cuda():
 def test_unported_settings_raise(field, value, item):
     cfg = SpGEMMConfig(**{field: value})
     A = gen.tiny_fixture()
-    for call in (lambda: spgemm_host(A, config=cfg, device="cpu"),
-                 lambda: spgemm_bucketed(A, A, config=cfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
+    calls = (lambda: spgemm_host(A, config=cfg, device="cpu"),
+             lambda: spgemm_bucketed(A, A, config=cfg, device="cpu"))
+    if item is None:
+        ref = oracle_spgemm(A, A)
+        assert calls[0]().equals(ref, tol=1e-9)
+        assert calls[1]()[0].host().equals(ref, tol=1e-9)
+        return
+    match = "interpret" if item == "Pallas interpreter" else "ROADMAP"
+    for call in calls:
+        with pytest.raises(NotImplementedError, match=match) as exc:
             call()
         assert item in str(exc.value)
 
