@@ -14,7 +14,10 @@
    counts exact, values within 1e-9 (f64) / 1e-4 (f32)
    absolute-or-relative); the slab form ``esc_tail`` the same way over
    the same widths, with row counts under w2 (NaN values and random keys
-   past them), empty rows and full rows; ``ragged_fill`` against its
+   past them), empty rows and full rows; both tails also against a
+   reference by ``torch.sort`` and ``index_add_`` that shares nothing of
+   their algorithm (keys and counts exact, values within 1e-9 (f64) /
+   1e-4 (f32) of the summed magnitudes); ``ragged_fill`` against its
    plain version for 1, 2 and 3 planes at window rows 16 and 128 (the
    largest), on runs that cross the half-window grid, full-window runs
    and a zero-length run, compared exactly on the words the runs cover;
@@ -139,6 +142,45 @@ def tail_inputs(w2: int, nseg: int, seed: int):
     return keys.reshape(-1), vals.reshape(-1)
 
 
+def sorted_tail(torch, K, V):
+    """The tail on ``[S, w2]`` by ``torch.sort`` and ``index_add_``,
+    independent of the bitonic network and the scan that the kernel and
+    its plain version share.  Returns (packed keys, packed sums in f64,
+    the summed magnitudes of each packed key's terms, counts)."""
+    S, w2 = K.shape
+    sk, order = torch.sort(K, dim=1)
+    sv = torch.gather(V, 1, order).double()
+    valid = sk < I32_MAX
+    head = valid.clone()
+    head[:, 1:] &= sk[:, 1:] != sk[:, :-1]
+    pos = (torch.arange(S, device=K.device)[:, None] * w2
+           + torch.cumsum(head, dim=1) - 1)
+    out_k = torch.full((S * w2,), I32_MAX, dtype=torch.int32,
+                       device=K.device)
+    out_k[pos[head]] = sk[head]
+    out_v = torch.zeros(S * w2, dtype=torch.float64, device=K.device)
+    mag = torch.zeros_like(out_v)
+    out_v.index_add_(0, pos[valid], sv[valid])
+    mag.index_add_(0, pos[valid], sv[valid].abs())
+    return out_k, out_v, mag, head.sum(dim=1, dtype=torch.int32)
+
+
+def check_sorted(torch, oK, oV, cnt, K, V, tol: float, label: str) -> float:
+    """Kernel output against :func:`sorted_tail` on the masked inputs:
+    keys and counts exact, values within ``tol`` of the summed
+    magnitudes (at least 1).  Returns the max abs error."""
+    rK, rV, mag, rc = sorted_tail(torch, K, V)
+    check(torch.equal(oK.reshape(-1), rK), f"{label}: keys differ from "
+          "the sort reference")
+    check(torch.equal(cnt, rc), f"{label}: counts differ from the sort "
+          "reference")
+    err = (oV.reshape(-1).double() - rV).abs()
+    check(bool((err <= tol * torch.clamp(mag, min=1.0)).all()),
+          f"{label}: values differ from the sort reference: max abs err "
+          f"{float(err.max())}")
+    return float(err.max())
+
+
 def kernel_phase(torch, et, dev) -> dict:
     errs = {torch.float64: 0.0, torch.float32: 0.0}
     tols = {torch.float64: 1e-9, torch.float32: 1e-4}
@@ -157,9 +199,13 @@ def kernel_phase(torch, et, dev) -> dict:
             ok = err <= tols[dtype] * torch.clamp(pV.abs(), min=1.0)
             check(bool(ok.all()), f"values differ at w2={w2} {dtype}: "
                   f"max abs err {float(err.max())}")
+            serr = check_sorted(torch, oK, oV, cnt, keys.view(nseg, w2),
+                                vals.view(nseg, w2), tols[dtype],
+                                f"esc_tail_flat w2={w2} {dtype}")
             errs[dtype] = max(errs[dtype], float(err.max()))
             print(f"kernel w2={w2:6d} {str(dtype):14s} slots={k.size:8d} "
-                  f"max_abs_err={float(err.max()):.3e} ok", flush=True)
+                  f"max_abs_err={float(err.max()):.3e} "
+                  f"sort_ref_err={serr:.3e} ok", flush=True)
     return errs
 
 
@@ -191,9 +237,16 @@ def slab_tail_phase(torch, et, dev) -> dict:
             ok = err <= tols[dtype] * torch.clamp(pV.abs(), min=1.0)
             check(bool(ok.all()), f"esc_tail values differ at w2={w2} "
                   f"{dtype}: max abs err {float(err.max())}")
+            live = (torch.arange(w2, device=dev)[None, :]
+                    < rl.long()[:, None])
+            serr = check_sorted(torch, oK, oV, cnt,
+                                torch.where(live, k, I32_MAX),
+                                torch.where(live, v, 0.0), tols[dtype],
+                                f"esc_tail w2={w2} {dtype}")
             errs[dtype] = max(errs[dtype], float(err.max()))
             print(f"kernel esc_tail w2={w2:6d} {str(dtype):14s} "
                   f"rows={rows:7d} max_abs_err={float(err.max()):.3e} "
+                  f"sort_ref_err={serr:.3e} "
                   f"exact={bool(torch.equal(oV, pV))} ok", flush=True)
     return errs
 
@@ -402,7 +455,9 @@ def time_slab_tail(torch, et, bk, state) -> dict:
     valid = int(rl.clamp(max=w2).sum())
     adds = valid - int(cnt.sum())
     slots = K.numel()
-    nbytes = slots * (4 + 8) * 2 + K.shape[0] * 4 * 2
+    # the kernel reads only the live slots (under row_len), writes every
+    # slot, reads row_len and writes the counts
+    nbytes = (valid + slots) * (4 + 8) + K.shape[0] * 4 * 2
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = adds / FP64_FLOPS * 1e3
     print(f"timing esc_tail on {FILL_MATRIX}'s forced-fill W={w2} class "

@@ -83,6 +83,15 @@ def _vwords(config: SpGEMMConfig) -> int:
     return 2 if config.vdtype == torch.float64 else 1
 
 
+def _require_fill(planned: str, config: SpGEMMConfig, device) -> None:
+    """A warm call runs a plan only under the ``dma_fill`` it was made
+    for: the fill classes, tile fills and windowed extraction are fixed
+    in the plan."""
+    require(planned == fill_mode(config, device), SpGEMMError,
+            f"state was prepared under dma_fill={planned!r}, not "
+            f"{fill_mode(config, device)!r}")
+
+
 def prepare_bucketed_state(A: CSR, B: CSR,
                            config: SpGEMMConfig = DEFAULT_CONFIG,
                            device=None) -> BucketedState:
@@ -138,6 +147,7 @@ def spgemm_bucketed(A: CSR, B: CSR,
                     "state was prepared for another device")
         require(state.route == route, SpGEMMError,
                 "state was prepared under another esc_tail setting")
+        _require_fill(state.plan.dma_fill, config, state.device)
         plan = state.plan
     dev = state.device
 
@@ -328,6 +338,7 @@ def spgemm_blockdense(A: CSR, B: CSR,
                 SpGEMMError,
                 "state was prepared under another value_dtype or ozaki "
                 "setting")
+        _require_fill(state.plan.dma_fill, config, state.device)
         plan = state.plan
     dev = state.device
 
@@ -412,6 +423,7 @@ def spgemm_masked(A: CSR, B: CSR,
                     "state was prepared for another device")
         require(state.vdtype == config.vdtype, SpGEMMError,
                 "state was prepared under another value_dtype")
+        _require_fill(state.plan.dma_fill, config, state.device)
         plan = state.plan
     dev = state.device
 

@@ -26,10 +26,11 @@ from mh_spgemm_tpu.csr import CSR as JCSR
 from mh_spgemm_torch import (CSR, SpGEMMConfig, oracle_spgemm,
                              spgemm_chunked, spgemm_host)
 from mh_spgemm_torch.bench import gen
-from mh_spgemm_torch.errors import DeviceError
+from mh_spgemm_torch.errors import DeviceError, SpGEMMError
 from mh_spgemm_torch.ops import blockdense as tbd
 from mh_spgemm_torch.ops import esc_tail as et
-from mh_spgemm_torch.pipeline import spgemm_blockdense, spgemm_bucketed
+from mh_spgemm_torch.pipeline import (spgemm_blockdense, spgemm_bucketed,
+                                      spgemm_masked)
 
 MATRICES = {
     "tiny_fixture": lambda: gen.tiny_fixture(),
@@ -226,6 +227,24 @@ def test_auto_and_off_settings_run(field):
         C = spgemm_host(A, config=SpGEMMConfig(**{field: value}),
                         device="cpu")
         assert C.equals(ref, tol=1e-9)
+
+
+@pytest.mark.parametrize("engine", ["bucketed", "masked", "blockdense"])
+def test_state_keeps_its_dma_fill(engine):
+    """A warm call runs a state only under the dma_fill it was prepared
+    for, as resolved for the state's device: "on" and "off" refuse each
+    other's state, and on the CPU "auto" (off there) takes "off"'s."""
+    run = {"bucketed": spgemm_bucketed, "masked": spgemm_masked,
+           "blockdense": spgemm_blockdense}[engine]
+    A = gen.banded(300, band=12, nnz_per_row=6, seed=5)
+    on, off, auto = (SpGEMMConfig(dma_fill=v) for v in ("on", "off", "auto"))
+    _, st_on = run(A, A, config=on, device="cpu")
+    _, st_off = run(A, A, config=off, device="cpu")
+    for cfg, st in ((off, st_on), (auto, st_on), (on, st_off)):
+        with pytest.raises(SpGEMMError, match="dma_fill"):
+            run(A, A, config=cfg, state=st)
+    C, _ = run(A, A, config=auto, state=st_off)
+    assert C.host().equals(oracle_spgemm(A, A), tol=1e-9)
 
 
 @pytest.mark.parametrize("esc_tail,route", [("auto", "kernel"),

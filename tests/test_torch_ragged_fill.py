@@ -217,6 +217,31 @@ def test_slab_tail_f64_matches_jax(w2):
     assert np.all(err <= 1e-9 * np.maximum(1.0, np.abs(ref[live])))
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("w2", [1024, 16384])
+def test_slab_tail_against_numpy_sort(w2, dtype):
+    """At widths where interpreter mode is slow, against a reference by
+    np.unique and np.add.at that shares nothing of the bitonic network:
+    keys and counts exact, values within 1e-9 (f64) or 1e-4 (f32) of the
+    summed magnitudes of each key's terms."""
+    keys, vals, row_len = slab_inputs(w2, 3, seed=w2 + 1)
+    vals = vals.astype(dtype)
+    oK, oV, cnt = tet.esc_tail(torch.from_numpy(keys), torch.from_numpy(vals),
+                               torch.from_numpy(row_len), w2=w2)
+    tol = 1e-9 if dtype == np.float64 else 1e-4
+    for r in range(keys.shape[0]):
+        k, v = keys[r, :row_len[r]], vals[r, :row_len[r]].astype(np.float64)
+        uk, inv = np.unique(k, return_inverse=True)
+        sums, mags = np.zeros(uk.size), np.zeros(uk.size)
+        np.add.at(sums, inv, v)
+        np.add.at(mags, inv, np.abs(v))
+        assert np.array_equal(oK[r, :uk.size].numpy(), uk)
+        assert np.all(oK[r, uk.size:].numpy() == I32_MAX)
+        assert int(cnt[r]) == uk.size
+        err = np.abs(oV[r, :uk.size].numpy().astype(np.float64) - sums)
+        assert np.all(err <= tol * np.maximum(1.0, mags)), float(err.max())
+
+
 def test_slab_tail_ignores_words_past_row_len():
     """NaN values and random keys past a row's count change nothing."""
     keys, vals, row_len = slab_inputs(64, 16, seed=3)
