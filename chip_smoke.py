@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit and the torch version.
-2. Builds the three CUDA sources (``mh_spgemm_torch/csrc/esc_tail.cu``,
-   ``pair_matmul.cu`` and ``ragged_fill.cu``) with nvcc for sm_90a into
-   ``build/``, one nvcc per source, started together; prints the build
-   times and the registers and spills ptxas reports.
+2. Builds the four CUDA sources (``mh_spgemm_torch/csrc/esc_tail.cu``,
+   ``pair_matmul.cu``, ``ragged_fill.cu`` and ``planned.cu``) with nvcc
+   for sm_90a into ``build/``, one nvcc per source, started together;
+   prints the build times and the registers and spills ptxas reports.
 3. Kernel phase: ``esc_tail_flat`` against its plain PyTorch version on
    the card for w2 in {2, 8, 256, 2048, 8192, 32768, 65536}, f64 and
    f32, on duplicate-heavy, empty and all-same-key segments (keys and
@@ -21,6 +21,13 @@
    plain version for 1, 2 and 3 planes at window rows 16 and 128 (the
    largest), on runs that cross the half-window grid, full-window runs
    and a zero-length run, compared exactly on the words the runs cover;
+   ``pgather`` against its plain version on every output word and
+   against ``tab[src[perm]]`` from the host schedule, for 1, 2 and 3
+   planes (one read in place with a word stride of 2); ``proute`` against
+   its plain version on every word at m in {1024, 32768, 131072} with
+   hold widths {1, 8, 2048, 32768} (up to m), on planned routes and on
+   random mask bits, and without the hold against ``out[dest] = in``
+   (all exact);
    ``pair_matmul_f64`` and ``pair_matmul_f32`` against their plain
    versions on a synthetic stream (segments of 1 to 64 pairs, dead
    pairs, C blocks with no pair) and on pdb1HYS's own pair stream (f64
@@ -30,16 +37,25 @@
    1e-4 absolute where the sum cancels to near zero); ``block_gather``
    against ``index_select`` for f64, f32 and int32 (exact).
 4. Bucketed phase: ``spgemm_host`` and ``spgemm_bucketed`` (one cold
-   call, then warm calls reusing the state) under the default config on
-   the full-size stand-ins scircuit, cage12 and webbase-1M; every C must
-   equal the scipy oracle within 1e-9, the launch counts, set to 0 before
-   this phase, must have grown for the tail kernel and for
-   ``ragged_fill`` (cage12's windowed extraction).  Prints per matrix the
-   engine ``choose_engine`` picks, the warm ms per SpGEMM (CUDA events),
-   GFLOPS = 2 * intprod / ms, nnz(C), the class widths and frontends,
-   whether the extraction is windowed and the slots each tail took; then
-   each stage of a warm call timed alone, the extraction both windowed
-   and by the gather where the plan has the windowed copy.
+   call, then warm calls reusing the state) under the default config
+   (``planned="auto"``: the planned frontend on the card) on the
+   full-size stand-ins scircuit, cage12 and webbase-1M; every C must
+   equal the scipy oracle within 1e-9; scircuit and webbase-1M must run
+   planned classes, cage12 must be replanned (the legacy-replan rule);
+   the launch counts, set to 0 before this phase, must have grown for
+   ``esc_tail_flat``, ``ragged_fill`` (cage12's windowed extraction),
+   ``pgather`` and ``proute``.  Prints per matrix the engine
+   ``choose_engine`` picks, the warm ms per SpGEMM (CUDA events), GFLOPS
+   = 2 * intprod / ms, nnz(C), the class widths and frontends, the
+   planning seconds, whether the plan was replanned, which extraction the
+   warm call runs (windowed, planned or gather) and the slots each tail
+   took; then each stage of a warm call timed alone, the extraction by
+   the gather and by the copy the plan has (windowed or planned), and
+   the same under ``planned="off"``.
+   Then the planned-versus-off phase: on each stand-in, cold calls (host
+   wall clock, planning included) and warm calls (CUDA events) under the
+   default config and under ``planned="off"``, in turns (default, off,
+   off, default), every C against the oracle.
 5. Forced-fill phase on cage12 (``dma_fill="on"``): its W=256 class must
    run the fill frontend, C must equal the oracle, and the
    ``ragged_fill`` and ``esc_tail`` launch counts, set to 0 before, must
@@ -60,12 +76,16 @@
    ms, GFLOPS, cold ms, the classes by frontend and their tile widths.
 8. Kernel timing (CUDA events, warm, many launches), each kernel beside
    its plain version, one PyTorch call computing the same function and
-   its bound: ``esc_tail_flat`` on cage12's W=256 class (``torch.sort``),
+   its bound: ``esc_tail_flat`` on cage12's W=256 class under
+   ``planned="off"`` (``torch.sort``),
    ``esc_tail`` on cage12's forced-fill W=256 class (``torch.sort``),
    ``ragged_fill`` at cage12's windowed-extraction shapes (one
-   ``index_select`` over the same word indices), and the pair matmuls
-   and ``block_gather`` at pwtk's shapes (``torch.bmm`` of the
-   pre-gathered pairs, ``torch.index_select``).
+   ``index_select`` over the same word indices), ``pgather`` and
+   ``proute`` at scircuit's widest planned class (its B route) and at its
+   planned extraction's shapes (one ``index_select`` over the same word
+   indices; one ``index_copy_`` by the host-simulated destinations), and
+   the pair matmuls and ``block_gather`` at pwtk's shapes (``torch.bmm``
+   of the pre-gathered pairs, ``torch.index_select``).
 9. CLI phase: ``python -m mh_spgemm_torch pdb1HYS --check --stats --json
    --iters 3`` in a subprocess must exit 0, pass its check on the
    block-dense engine, and print nothing of JAX; ``python -m
@@ -97,7 +117,10 @@ FP32_FLOPS = 67e12              # H100 SXM data sheet, FP32 (non-tensor)
 W2S = (2, 8, 256, 2048, 8192, 32768, 65536)
 MATRICES = ("scircuit", "cage12", "webbase-1M")
 BD_MATRICES = ("pdb1HYS", "pwtk")
-SOURCES = ("esc_tail", "pair_matmul", "ragged_fill")
+SOURCES = ("esc_tail", "pair_matmul", "ragged_fill", "planned")
+PLANNED_MATRICES = ("scircuit", "webbase-1M")   # must run planned classes
+REPLANNED_MATRIX = "cage12"                     # must be replanned
+PLANNED_TIMING = "scircuit"
 MASKED_MATRICES = ("scircuit", "cage12")
 FILL_MATRIX = "cage12"
 WARM_CALLS = 20
@@ -300,14 +323,96 @@ def fill_kernel_phase(torch, rf, bk, dev) -> int:
     return err
 
 
-def main_path_phase(torch, mt, et, rf, dev):
+def planned_kernel_phase(torch, pn, dev) -> dict:
+    """pgather and proute against their plain versions on every output
+    word, and against the host's truth: the table read at each scheduled
+    source, and out[dest] = in.  All exact.  Returns the max abs errors
+    (0 when the run gets here)."""
+    rng = np.random.default_rng(4)
+    for nplanes in (1, 2, 3):
+        for S, T in ((30000, 2000), (100000, 600000)):
+            src = rng.integers(0, T, S).astype(np.int64)
+            wblk, rowsel, lane, perm = pn.plan_pgather(src, T)
+            sched = [torch.from_numpy(x).to(dev) for x in (wblk, rowsel, lane)]
+            words = torch.from_numpy(rng.integers(
+                -2**31, 2**31 - 1, (T, 2), dtype=np.int64).astype(
+                    np.int32)).to(dev)
+            tabs = [words[:, 0], words[:, 1],
+                    words[:, 0].contiguous() ^ 5][:nplanes]
+            out = pn.pgather(tabs, *sched)
+            torch.cuda.synchronize()
+            check(torch.equal(out, pn.pgather_plain(tabs, *sched)),
+                  f"pgather differs from its plain version ({S}, {T}, "
+                  f"{nplanes} planes)")
+            live = np.flatnonzero(perm >= 0)
+            at = torch.from_numpy(src[perm[live]]).to(dev)
+            lv = torch.from_numpy(live).to(dev)
+            check(all(torch.equal(out[p][lv], t[at])
+                      for p, t in enumerate(tabs)),
+                  "pgather differs from the table at its sources")
+            print(f"kernel pgather planes={nplanes} sources={S} table={T} "
+                  f"blocks={wblk.size} exact ok", flush=True)
+    for m in (1024, 32768, 131072):
+        nb = 3
+        dest = np.stack([rng.permutation(m) for _ in range(nb)])
+        srcs = rng.integers(0, 4 * m, (nb, m // 4))
+        routes = []
+        for b in range(nb):          # a planned route: schedule -> slots
+            sch = pn.plan_pgather(srcs[b], 0)
+            if sch[3].size <= m:
+                routes.append(pn.route_dest(sch[3], m, rng.permutation(m)))
+        dest = np.concatenate([dest, np.stack(routes)]) if routes else dest
+        nb = dest.shape[0]
+        masks, nst = pn.plan_routes(dest)
+        mk = torch.from_numpy(masks).to(dev)
+        rand = torch.from_numpy(rng.integers(
+            -2**31, 2**31 - 1, masks.shape, dtype=np.int64).astype(
+                np.int32)).to(dev)
+        d = torch.from_numpy(dest).to(dev)
+        for nplanes in (2, 3):
+            x = torch.from_numpy(rng.integers(
+                -2**31, 2**31 - 1, (nplanes, nb, m), dtype=np.int64).astype(
+                    np.int32)).to(dev)
+            fl = torch.from_numpy((rng.random((nb, m)) < 0.1).astype(
+                np.int32)).to(dev)
+            fl[:, ::8] = 1
+            for hold in (h for h in (1, 8, 2048, 32768) if h <= m):
+                for masks_ in (mk, rand):
+                    out = pn.proute(x, masks_, nst, hold_w2=hold, flags=fl)
+                    torch.cuda.synchronize()
+                    check(torch.equal(out, pn.proute_plain(
+                        x, masks_, nst, hold_w2=hold, flags=fl)),
+                        f"proute differs from its plain version (m={m}, "
+                        f"hold {hold}, {nplanes} planes)")
+                if hold == 1:
+                    want = torch.empty_like(x)
+                    for b in range(nb):
+                        want[:, b, d[b]] = x[:, b]
+                    check(torch.equal(pn.proute(x, mk, nst), want),
+                          f"proute differs from out[dest] = in (m={m})")
+                print(f"kernel proute m={m} networks={nb} planes={nplanes} "
+                      f"hold={hold} exact ok", flush=True)
+    return {"pgather": 0.0, "proute": 0.0}
+
+
+def extraction_kind(plan) -> str:
+    """Which extraction a warm call of ``plan`` runs (the order of
+    ``extract_warm``)."""
+    if plan.ext is not None:
+        return "windowed"
+    return "planned" if plan.ext_pf is not None else "gather"
+
+
+def main_path_phase(torch, mt, et, rf, pn, dev):
     """Drive the main path on every stand-in; the tail kernels' and
     ragged_fill's launch counts are set to 0 just before and read just
     after.  Returns (states, oracles, matrices, launches)."""
     from mh_spgemm_torch.io.suites import load_matrix
     from mh_spgemm_torch.pipeline import spgemm_bucketed
     kept, refs, mats = {}, {}, {}
-    for fn in (et.esc_tail_flat, et.esc_tail, rf.ragged_fill):
+    counted = (et.esc_tail_flat, et.esc_tail, rf.ragged_fill, pn.pgather,
+               pn.proute)
+    for fn in counted:
         fn.launches = 0
     for name in MATRICES:
         t0 = time.perf_counter()
@@ -319,8 +424,9 @@ def main_path_phase(torch, mt, et, rf, dev):
         torch.cuda.reset_peak_memory_stats()
         C = mt.spgemm_host(A, device=dev)
         check(C.equals(ref, tol=1e-9), f"{name}: spgemm_host != oracle")
+        tm = mt.Timing()
         t0 = time.perf_counter()
-        Cd, state = spgemm_bucketed(A, A, device=dev)
+        Cd, state = spgemm_bucketed(A, A, timing=tm, device=dev)
         cold_ms = (time.perf_counter() - t0) * 1e3
         check(Cd.host().equals(ref, tol=1e-9), f"{name}: cold != oracle")
         plan = state.plan
@@ -338,27 +444,91 @@ def main_path_phase(torch, mt, et, rf, dev):
             "nnz_a": A.nnz, "intprod": intprod, "nnz_c": ref.nnz,
             "warm_ms": ms, "gflops": mt.gflops(intprod, ms),
             "cold_ms": cold_ms, "setup_s": setup_s,
+            "plan_s": tm.symbolic_binning / 1e3,
+            "cold_readback_ms": tm.malloc_c_col_val,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "planned": state.planned, "replanned": state.replanned,
             "widths": [c.W for c in plan.classes],
+            "chunks": [c.nchunks for c in plan.classes],
             "frontends": [c.frontend for c in plan.classes],
+            "networks": [c.pf_spec[:4] for c in plan.classes if c.pf],
+            "extraction": extraction_kind(plan),
             "windowed_extraction": plan.ext is not None,
             "slots_per_call": per_call,
         }
         print("main " + json.dumps(row), flush=True)
         kept[name] = state
         del Cd, C, out
-    launches = {fn.__name__: fn.launches
-                for fn in (et.esc_tail_flat, et.esc_tail, rf.ragged_fill)}
-    check(launches["esc_tail_flat"] > 0,
-          "esc_tail_flat was not launched on the main path")
+    launches = {fn.__name__: fn.launches for fn in counted}
+    print("main launches " + json.dumps(launches), flush=True)
+    for name in PLANNED_MATRICES:
+        check(any(c.pf for c in kept[name].plan.classes),
+              f"{name} runs no planned class")
+    kind = extraction_kind(kept[PLANNED_TIMING].plan)
+    check(kind in ("planned", "windowed"),
+          f"{PLANNED_TIMING}'s warm call extracts by the {kind}")
+    print(f"{PLANNED_TIMING}'s warm call extracts by the {kind} copy"
+          + (" (dma_fill='auto' picked the windowed copy, which takes "
+             "precedence as in the JAX package)" if kind == "windowed"
+             else ""), flush=True)
+    check(kept[REPLANNED_MATRIX].replanned,
+          f"{REPLANNED_MATRIX} was not replanned")
+    print(f"{REPLANNED_MATRIX}: replanned by the legacy-replan rule "
+          f"(classes {[(c.W, c.frontend) for c in kept[REPLANNED_MATRIX].plan.classes]})",
+          flush=True)
     check(kept[FILL_MATRIX].plan.ext is not None,
           f"{FILL_MATRIX}'s extraction is not windowed")
-    check(launches["ragged_fill"] > 0,
-          "ragged_fill was not launched on the main path")
+    for fn in ("esc_tail_flat", "ragged_fill", "pgather", "proute"):
+        check(launches[fn] > 0, f"{fn} was not launched on the main path")
     return kept, refs, mats, launches
 
 
-def breakdown_phase(bk, states: dict) -> dict:
+def planned_vs_off_phase(torch, mt, mats: dict, refs: dict, states: dict,
+                         dev) -> dict:
+    """Each stand-in under the default config (planned "auto", on on the
+    card) against planned="off": cold calls (host wall clock, planning
+    and the first readback included) and warm calls (CUDA events), in
+    turns (default, off, off, default).  Every C against the oracle.
+    Returns the planned="off" states."""
+    from mh_spgemm_torch.pipeline import spgemm_bucketed
+    off_cfg = mt.SpGEMMConfig(planned="off")
+    off_states = {}
+    for name in MATRICES:
+        A, ref = mats[name], refs[name]
+        cfgs = {"default": mt.SpGEMMConfig(), "off": off_cfg}
+        cold = {"default": [], "off": []}
+        warm = {"default": [], "off": []}
+        st = {"default": states[name]}
+        for which in ("default", "off", "off", "default"):
+            t0 = time.perf_counter()
+            C, s_ = spgemm_bucketed(A, A, config=cfgs[which], device=dev)
+            cold[which].append((time.perf_counter() - t0) * 1e3)
+            check(C.host().equals(ref, tol=1e-9),
+                  f"{name} ({which}): cold != oracle")
+            st.setdefault(which, s_)
+            del C, s_
+        for which in ("default", "off", "off", "default"):
+            out = {}
+
+            def warm_call():
+                out["C"], _ = spgemm_bucketed(A, A, config=cfgs[which],
+                                              state=st[which])
+
+            warm[which].append(cuda_ms(warm_call, WARM_CALLS, warmup=1))
+            check(out["C"].host().equals(ref, tol=1e-9),
+                  f"{name} ({which}): warm != oracle")
+            del out
+        off_states[name] = st["off"]
+        row = {"matrix": name, "warm_ms": warm, "cold_ms": cold,
+               "frontends": {k: [(c.W, c.frontend) for c in v.plan.classes]
+                             for k, v in st.items()},
+               "extraction": {k: extraction_kind(v.plan)
+                              for k, v in st.items()}}
+        print("planned_vs_off " + json.dumps(row), flush=True)
+    return off_states
+
+
+def breakdown_phase(bk, states: dict, label: str = "stages") -> dict:
     """Device time of a warm call's three stages, each timed alone over
     all classes: the frontends, the tails (the kernels, plus the direct
     W = 1 path and the wide-sort tail) and the extraction, by the static
@@ -393,13 +563,18 @@ def breakdown_phase(bk, states: dict) -> dict:
                 lambda: bk.bucketed_extract_windowed(
                     slabs, plan.ext, nnz_cap=plan.nnz_cap,
                     nnz_c=plan.nnz_c), 10)
+        elif plan.ext_pf is not None:
+            row["extract_planned_ms"] = cuda_ms(
+                lambda: bk.extract_warm(plan, slabs), 10)
         ext_ms[name] = row
-        print("stages " + json.dumps(row), flush=True)
+        print(f"{label} " + json.dumps(row), flush=True)
         del fronts, slabs
     return ext_ms
 
 
 def time_kernel(torch, et, bk, state) -> dict:
+    """esc_tail_flat on the widest pre class of ``state`` (cage12 under
+    planned="off", whose W=256 class is pre)."""
     plan = state.plan
     i = max((j for j, c in enumerate(plan.classes) if c.pre and c.W > 1),
             key=lambda j: plan.classes[j].W * plan.classes[j].rb
@@ -420,7 +595,8 @@ def time_kernel(torch, et, bk, state) -> dict:
     nbytes = slots * (4 + 8) * 2 + cnt.numel() * 4
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = adds / FP64_FLOPS * 1e3
-    print(f"timing esc_tail_flat on cage12 W={w2} slots={slots}: "
+    print(f"timing esc_tail_flat on cage12 (planned off) W={w2} "
+          f"slots={slots}: "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sort "
           f"{lib_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
           f"({nbytes} B, {adds} adds)", flush=True)
@@ -512,6 +688,126 @@ def time_fill(torch, rf, bk, state) -> dict:
           f"{bound_ms:.4f} ms ({nbytes} B)", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "words": words}
+
+
+def schedule_words(torch, wblk, rowsel, lane):
+    """The table word each output position of a pgather schedule reads
+    (the kernel's index arithmetic), flat int64."""
+    ln = lane.reshape(-1, 8, 128).long() & 127
+    rs = rowsel.reshape(-1, 8, 128).long()
+    return ((wblk.reshape(-1).long()[:, None, None] * 64
+             + torch.gather(rs, 2, ln)) * 128 + ln).reshape(-1)
+
+
+def time_pgather(torch, pn, tabs, sched, label: str) -> dict:
+    """pgather on a schedule beside its plain version, one index_select of
+    the stacked planes by the same word indices, and its bound: each
+    lane and rowsel word and each wblk entry read once, each table word
+    the schedule names read once per plane, each output word written
+    once."""
+    wblk, rowsel, lane = sched
+    ms = cuda_ms(lambda: pn.pgather(tabs, *sched), 20)
+    plain_ms = cuda_ms(lambda: pn.pgather_plain(tabs, *sched), 5)
+    idx = schedule_words(torch, wblk, rowsel, lane)
+    n = tabs[0].numel()
+    idx = idx.clamp(0, n - 1)
+    stacked = torch.stack([t.contiguous() for t in tabs])
+    check(torch.equal(pn.pgather(tabs, *sched).reshape(len(tabs), -1),
+                      torch.index_select(stacked, 1, idx)),
+          f"pgather differs from index_select on {label}")
+    lib_ms = cuda_ms(lambda: torch.index_select(stacked, 1, idx), 20)
+    P, pos = len(tabs), idx.numel()
+    distinct = int(torch.unique(idx).numel())
+    nbytes = pos * 8 + wblk.numel() * 4 + distinct * 4 * P + pos * 4 * P
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"timing pgather on {label} ({P} planes, {wblk.numel()} blocks, "
+          f"{pos} positions, {distinct} distinct words): {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({nbytes} B)", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "positions": pos}
+
+
+def time_proute(torch, pn, x, masks, nst, dest, label: str) -> dict:
+    """proute (no hold) beside its plain version, one index_copy_ by the
+    host-simulated destinations, and its bound: the mask words read
+    once, each plane read and written once."""
+    ms = cuda_ms(lambda: pn.proute(x, masks, nst), 20)
+    plain_ms = cuda_ms(lambda: pn.proute_plain(x, masks, nst), 3, warmup=1)
+    P, nb, m = x.shape
+    flat_dest = (dest + torch.arange(nb, device=x.device)[:, None] * m
+                 ).reshape(-1)
+    flat_x = x.reshape(P, -1)
+    out = torch.empty_like(flat_x)
+    out.index_copy_(1, flat_dest, flat_x)
+    check(torch.equal(pn.proute(x, masks, nst).reshape(P, -1), out),
+          f"proute differs from index_copy_ on {label}")
+    lib_ms = cuda_ms(lambda: out.index_copy_(1, flat_dest, flat_x), 20)
+    nbytes = masks.numel() * 4 + 2 * x.numel() * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"timing proute on {label} ({P} planes, {nb} networks of {m}, "
+          f"{nst} stages): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"index_copy_ {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({nbytes} B)", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "m": m,
+            "networks": nb}
+
+
+def time_planned(torch, pn, bk, state) -> dict:
+    """pgather and proute at the shapes of scircuit's widest planned class
+    (its B route: column and value words of B) and of its planned
+    extraction (the warm slabs' words), each on the main path's own
+    schedules.  The destinations for the index_copy_ yardstick come from
+    the host schedules, independent of the masks."""
+    plan = state.plan
+    i = max((j for j, c in enumerate(plan.classes) if c.pf),
+            key=lambda j: plan.classes[j].pf_spec[0]
+            * plan.classes[j].nchunks)
+    c, d = plan.classes[i], plan.dev[i]
+    m_b, nst_b = c.pf_spec[:2]
+    label = (f"{PLANNED_TIMING}'s W={c.W} class ({c.nchunks} chunks, "
+             f"m={m_b})")
+    tabs = [state.b_col] + bk._words(state.b_val)
+    sched = (d["bg_wblk"], d["bg_rowsel"], d["bg_lane"])
+    res = {"class": time_pgather(torch, pn, tabs, sched, label)}
+    dest = []
+    for k in range(c.nchunks):
+        pos = np.flatnonzero(c.slot_src[k] >= 0)
+        sch = pn.plan_pgather(c.slot_src[k][pos].astype(np.int64), 0)
+        dest.append(pn.route_dest(sch[3], m_b, pos))
+    dest = torch.from_numpy(np.stack(dest)).to(state.b_col.device)
+    g = pn.pgather(tabs, *sched)
+    res["route"] = time_proute(torch, pn, g, d["bt_masks"], nst_b, dest,
+                               label)
+    if plan.ext_pf is not None:
+        slabs = bk.bucketed_main(plan, state.a_val, state.b_col,
+                                 state.b_val, state.pairs, route=state.route)
+        vals = bk._flat([s_[1] for s_ in slabs])
+        etabs = [bk._flat([s_[0] for s_ in slabs])] + bk._words(vals)
+        wblk, rowsel, lane, masks = bk.planned_extract_dev(plan)
+        m_e, nst_e, nch, CH = plan.ext_pf_spec
+        elabel = f"{PLANNED_TIMING}'s planned extraction ({nch} chunks)"
+        res["ext_gather"] = time_pgather(torch, pn, etabs,
+                                         (wblk, rowsel, lane), elabel)
+        dest = []
+        for k in range(nch):
+            lo, hi = k * CH, min(plan.nnz_c, (k + 1) * CH)
+            sch = pn.plan_pgather(plan.ext_src_h[lo:hi].astype(np.int64), 0)
+            dest.append(pn.route_dest(sch[3], m_e))
+        dest = torch.from_numpy(np.stack(dest)).to(vals.device)
+        g = pn.pgather(etabs, wblk, rowsel, lane)
+        res["ext_route"] = time_proute(torch, pn, g, masks, nst_e, dest,
+                                       elabel)
+        res["ext_ms"] = cuda_ms(lambda: bk.extract_warm(plan, slabs), 10)
+        res["ext_gather_ms"] = cuda_ms(
+            lambda: bk.bucketed_extract_static(
+                slabs, bk.static_dev(plan)[0], nnz_c=plan.nnz_c), 10)
+        print(f"timing {PLANNED_TIMING}'s extraction: planned "
+              f"{res['ext_ms']:.4f} ms, static gather "
+              f"{res['ext_gather_ms']:.4f} ms", flush=True)
+        del slabs
+    return res
 
 
 def fill_phase(torch, mt, et, rf, A, ref, default_state, dev) -> tuple:
@@ -925,6 +1221,7 @@ def main() -> int:
     from mh_spgemm_torch.ops import bucketed as bk
     from mh_spgemm_torch.ops import esc_tail as et
     from mh_spgemm_torch.ops import pair_matmul as pm
+    from mh_spgemm_torch.ops import planned as pn
     from mh_spgemm_torch.ops import ragged_fill as rf
 
     # the plain versions and the library yardstick compute in full f32
@@ -951,14 +1248,22 @@ def main() -> int:
     errs = kernel_phase(torch, et, dev)
     serrs = slab_tail_phase(torch, et, dev)
     ferr = fill_kernel_phase(torch, rf, bk, dev)
+    pnerrs = planned_kernel_phase(torch, pn, dev)
     perrs = pair_kernel_phase(torch, pm, tbd, bd_mats["pdb1HYS"], dev)
     done("kernels")
-    states, refs, mats, launches = main_path_phase(torch, mt, et, rf, dev)
+    states, refs, mats, launches = main_path_phase(torch, mt, et, rf, pn,
+                                                   dev)
     done("bucketed")
+    off_states = planned_vs_off_phase(torch, mt, mats, refs, states, dev)
+    done("planned against off")
     ext_ms = breakdown_phase(bk, states)
-    t = time_kernel(torch, et, bk, states[FILL_MATRIX])
+    breakdown_phase(bk, off_states, label="stages_planned_off")
+    t = time_kernel(torch, et, bk, off_states[FILL_MATRIX])
+    del off_states
     tf = time_fill(torch, rf, bk, states[FILL_MATRIX])
-    done("bucketed stages, esc_tail_flat and ragged_fill timing")
+    tp = time_planned(torch, pn, bk, states[PLANNED_TIMING])
+    done("bucketed stages, esc_tail_flat, ragged_fill, pgather and "
+         "proute timing")
     fill_state, fill_launches = fill_phase(
         torch, mt, et, rf, mats[FILL_MATRIX], refs[FILL_MATRIX],
         states[FILL_MATRIX], dev)
@@ -981,6 +1286,8 @@ def main() -> int:
     print("extraction " + json.dumps({
         name: {k: v for k, v in row.items() if k.startswith("extract")}
         for name, row in ext_ms.items()}))
+    tail_by_phase = {"bucketed": launches["esc_tail"],
+                     "forced_fill": fill_launches["esc_tail"]}
     fill_by_phase = {"bucketed": launches["ragged_fill"],
                      "forced_fill": fill_launches["ragged_fill"],
                      "blockdense": bd_launches["ragged_fill"],
@@ -1002,8 +1309,8 @@ def main() -> int:
         "name": "esc_tail", "route": "cuda",
         "source": "mh_spgemm_torch/csrc/esc_tail.cu",
         "replaces": "mh_spgemm_tpu/ops/esc_tail.py:286",
-        "launches": fill_launches["esc_tail"],
-        "launches_phase": "forced_fill",
+        "launches": sum(tail_by_phase.values()),
+        "launches_by_phase": tail_by_phase,
         "max_abs_err": serrs[torch.float64],
         "max_abs_err_f32": serrs[torch.float32],
         "ms": ts["ms"], "plain_ms": ts["plain_ms"],
@@ -1021,6 +1328,20 @@ def main() -> int:
         "library_ms": tf["library_ms"],
         "timed_on": f"{FILL_MATRIX} windowed extraction",
         "timed_words": tf["words"]}] + [{
+            "name": name, "route": "cuda",
+            "source": "mh_spgemm_torch/csrc/planned.cu",
+            "replaces": f"mh_spgemm_tpu/ops/planned.py:{line}",
+            "launches": launches[name], "max_abs_err": pnerrs[name],
+            "ms": tp[key]["ms"], "plain_ms": tp[key]["plain_ms"],
+            "bound_ms": tp[key]["bound_ms"], "bound_by": tp[key]["bound_by"],
+            "library_ms": tp[key]["library_ms"],
+            "timed_on": f"{PLANNED_TIMING} widest planned class",
+            "extraction": ({k: tp[ext][k] for k in ("ms", "plain_ms",
+                                                    "bound_ms", "library_ms")}
+                           if ext in tp else None)}
+            for name, key, ext, line in (
+                ("pgather", "class", "ext_gather", 177),
+                ("proute", "route", "ext_route", 386))] + [{
             "name": name, "route": "cuda",
             "source": "mh_spgemm_torch/csrc/pair_matmul.cu",
             "replaces": replaces[name],

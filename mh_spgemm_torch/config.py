@@ -2,12 +2,13 @@
 
 ``SpGEMMConfig`` keeps the JAX package's field names and defaults, so a
 config written for one package reads the same in the other.  The port
-runs the bucketed engine (precomputed-slot, fill and gather frontends),
-the block-dense engine, ``mode="auto"`` choosing between them, and the
-class-based masked engine (``mode="masked"``); :func:`check_supported`
-resolves every setting to what the port can run and raises on settings
-whose kernels or engines are not ported yet, naming the ROADMAP item
-that ports them.  :func:`fill_mode` resolves ``dma_fill`` for a device.
+runs the bucketed engine (precomputed-slot, planned, fill and gather
+frontends), the block-dense engine, ``mode="auto"`` choosing between
+them, and the class-based masked engine (``mode="masked"``);
+:func:`check_supported` resolves every setting to what the port can run
+and raises on settings whose kernels or engines are not ported yet,
+naming the ROADMAP item that ports them.  :func:`fill_mode` and
+:func:`planned_mode` resolve ``dma_fill`` and ``planned`` for a device.
 """
 
 from __future__ import annotations
@@ -65,11 +66,9 @@ _MODE_ITEMS = {
     "esc": "ROADMAP Queue 1 item 9 (the DeviceCSR-level engines: "
            "symbolic, numeric, binning and mode='esc')",
 }
-# settings whose "auto" resolves to off because their kernel is not ported
-_KERNEL_ITEMS = {
-    "planned": "ROADMAP Queue 2 items 4-5 (pgather and proute, the planned "
-               "frontend)",
-}
+# Pallas-interpreter settings: in the port "on" forces the path on any
+# device, and CPU tensors take the plain versions
+_INTERPRET = ("dma_fill", "planned", "ozaki", "esc_tail")
 # TPU-only transport devices: the card has native f64 and cheap gathers
 _TPU_ONLY = ("df32", "wide_gather", "group_gather")
 
@@ -89,26 +88,17 @@ def check_supported(config: SpGEMMConfig) -> str:
                 f"mode={config.mode!r} is not ported yet: "
                 f"{_MODE_ITEMS[config.mode]}")
         raise ValueError(f"unknown mode {config.mode!r}")
-    for name, item in _KERNEL_ITEMS.items():
+    for name in _INTERPRET:
         v = getattr(config, name)
-        if v in ("on", "interpret"):
+        if v == "interpret":
             raise NotImplementedError(
-                f"{name}={v!r}: its kernel is not ported yet: {item}")
-        if v not in ("auto", "off"):
+                f"{name}='interpret' is the Pallas interpreter of the JAX "
+                "package; in the port 'on' forces the path on any device, "
+                "and CPU tensors take the plain versions")
+    for name in ("dma_fill", "planned", "ozaki"):
+        v = getattr(config, name)
+        if v not in ("auto", "on", "off"):
             raise ValueError(f"unknown {name} setting {v!r}")
-    if config.dma_fill == "interpret":
-        raise NotImplementedError(
-            "dma_fill='interpret' is the Pallas interpreter of the JAX "
-            "package; in the port 'on' forces the fill frontend on any "
-            "device, and CPU tensors take the plain version")
-    if config.dma_fill not in ("auto", "on", "off"):
-        raise ValueError(f"unknown dma_fill setting {config.dma_fill!r}")
-    if config.ozaki == "interpret":
-        raise NotImplementedError(
-            "ozaki='interpret' is the Pallas interpreter of the JAX "
-            "package; in the port CPU tensors take the plain version")
-    if config.ozaki not in ("auto", "on", "off"):
-        raise ValueError(f"unknown ozaki setting {config.ozaki!r}")
     for name in _TPU_ONLY:
         v = getattr(config, name)
         if v == "on":
@@ -126,10 +116,6 @@ def check_supported(config: SpGEMMConfig) -> str:
         return "kernel"
     if config.esc_tail == "off":
         return "sort"
-    if config.esc_tail == "interpret":
-        raise NotImplementedError(
-            "esc_tail='interpret' is the Pallas interpreter of the JAX "
-            "package; in the port CPU tensors take the plain version")
     raise ValueError(f"unknown esc_tail setting {config.esc_tail!r}")
 
 
@@ -142,3 +128,14 @@ def fill_mode(config: SpGEMMConfig, device) -> str:
     if config.dma_fill == "auto":
         return "auto" if torch.device(device).type == "cuda" else "off"
     return config.dma_fill
+
+
+def planned_mode(config: SpGEMMConfig, device) -> str:
+    """``planned`` resolved for a state prepared for ``device``: "auto"
+    gives the planned frontend and the planned extraction on a CUDA device
+    and is "off" elsewhere (the JAX package turns them on on the TPU
+    whenever values travel as 32-bit words, as the port's always do);
+    "on" forces them on any device; "off" is off."""
+    if config.planned == "auto":
+        return "on" if torch.device(device).type == "cuda" else "off"
+    return config.planned

@@ -15,15 +15,23 @@ then runs one of three frontends, as the JAX planner decides:
   kernel (ops/ragged_fill.py) copies out of a planar stream of B's column
   and value words (:func:`build_pairs_planar`), plus each row's product
   count ``row_len``;
-* ``"gather"`` (``precompute=False``, the masked engine's plans): the
-  entry descriptors alone; the device broadcasts each entry down its
-  slots (the JAX package's hold-scan) and gathers B per slot.
+* ``"planned"`` (``planned="on"``, a ``pre`` class whose chunks the
+  host can schedule): the ``pre`` slot arrays turned into host schedules
+  (:func:`attach_planned`): a windowed gather of B's words and a routing
+  network back to slot order (``pgather`` and ``proute``,
+  ops/planned.py), and the same for the A values of each run head, held
+  down their runs;
+* ``"gather"`` (``precompute=False``, the masked engine's plans and the
+  legacy replan; or a long-span ``pre`` class the planned frontend could
+  not schedule, demoted): the entry descriptors alone; the device
+  broadcasts each entry down its slots (the JAX package's hold-scan) and
+  gathers B per slot.
 
 The plans are array-for-array those of the JAX planner with ``planar=True``
-and the planned and grouped frontends off.  ``dma_fill`` arrives resolved
-by the pipeline: "auto" (the cost model; the pipeline passes it only for
-a state prepared for a CUDA device), "on" (forced on any device) or
-"off".
+and the grouped frontend off.  ``dma_fill`` arrives resolved by the
+pipeline: "auto" (the cost model; the pipeline passes it only for a state
+prepared for a CUDA device), "on" (forced on any device) or "off"; so
+does ``planned``: "on" or "off".
 
 Device half (torch): per class, one frontend call and one tail call over
 all chunks at once (every step is row-local, so the chunks of a class
@@ -42,7 +50,9 @@ learns nnz(C) per row with one small device-to-host copy; later calls use
 host-evaluated extraction indices and run without a sync between the main
 stage and the extraction.  Where ``dma_fill`` allows and the cost model
 agrees (:func:`build_extract_plan`), the extraction is the windowed copy
-instead: one ``ragged_fill`` run per C row and plane.
+instead: one ``ragged_fill`` run per C row and plane; otherwise, where a
+class is planned, the planned extraction (the slab-to-CSR gather as
+``pgather`` and ``proute`` schedules over output chunks).
 
 Every cost constant here is the JAX package's TPU v5e figure, kept so the
 plans and the routing match; none is measured on the H100.
@@ -57,6 +67,7 @@ import numpy as np
 import torch
 
 from . import esc_tail as esc_tail_mod
+from . import planned as pn
 from . import ragged_fill as rf
 from .shapes import quantize
 
@@ -89,6 +100,18 @@ _FILL_BIAS_WORDS = 8192
 # The windowed extraction's peak-memory guard of the JAX planner (the TPU
 # v5e's HBM budget, not an H100 limit), kept so the plans match.
 _EXTRACT_PEAK_BYTES = 11 * (1 << 30)
+# Planned-frontend limits of the JAX planner (the JAX defaults of
+# MHSPGEMM_PF_CHUNK_CAP and MHSPGEMM_PF_TABLE_CAP, which the port does not
+# read): the chunk slot count that bounds a routing network's width, and
+# the B table size in words.  Both are TPU VMEM budgets, not H100 limits,
+# kept so the plans match.
+_PF_CHUNK_CAP = 32768
+_PF_TABLE_CAP_WORDS = 6_500_000
+_PN_NSTAGES_1024 = 55          # len(_stage_list(1024)): the dummy A route
+# The long-span demotion's mean entry span and the legacy replan's share
+# of demoted slots (the JAX planner's and pipeline's rules).
+_DEMOTE_SPAN = 5.0
+_REPLAN_SHARE = 0.6
 
 
 class SlabOverflowError(ValueError):
@@ -123,10 +146,15 @@ class ClassPlan:
     pre: bool = False
     slot_src: Optional[np.ndarray] = None   # int32[nchunks, rb*W], -1 pad
     slot_aidx: Optional[np.ndarray] = None  # int32[nchunks, rb*W]
+    # planned frontend (a pre class with host schedules, attach_planned)
+    pf: bool = False
+    pf_host: Optional[dict] = None          # stacked per-chunk arrays
+    pf_spec: Tuple = ()                     # (m_b, nst_b, m_a, nst_a, a_route)
 
     @property
     def frontend(self) -> str:
-        return "fill" if self.fill else "pre" if self.pre else "gather"
+        return ("fill" if self.fill else "planned" if self.pf
+                else "pre" if self.pre else "gather")
 
 
 @dataclasses.dataclass
@@ -170,6 +198,9 @@ class BucketPlan:
     ext_src_h: Optional[np.ndarray] = None   # int32[nnz_cap]
     cptr_h: Optional[np.ndarray] = None      # int32[m_cap + 1]
     ext_static_dev: Optional[tuple] = None   # (src, cptr) on ``device``
+    ext_pf: Optional[dict] = None            # planned extraction schedules
+    ext_pf_spec: Tuple = ()                  # (m_e, nst_e, nch, CH)
+    ext_pf_dev: Optional[tuple] = None       # ext_pf on ``device``
     # slots that went through each tail, summed over this plan's runs
     tail_slots: Dict[str, int] = dataclasses.field(
         default_factory=lambda: {"direct": 0, "kernel": 0, "sort": 0})
@@ -400,6 +431,132 @@ def _attach_slot_arrays(c: ClassPlan) -> None:
     c.slot_aidx = sa
 
 
+def _run_heads(src: np.ndarray, aidx: np.ndarray, W: int) -> np.ndarray:
+    """Slots of one chunk that start an A run: a valid slot that does not
+    continue the previous slot's entry (same A index, next B source, same
+    row).  Returns their positions."""
+    L = src.size
+    valid = src >= 0
+    cont = np.zeros(L, bool)
+    cont[1:] = (valid[1:] & valid[:-1] & (aidx[1:] == aidx[:-1])
+                & (src[1:] == src[:-1] + 1))
+    cont[np.arange(L) % W == 0] = False
+    return np.flatnonzero(valid & ~cont)
+
+
+def _routes(dests: list, m: int):
+    """Routing masks of several networks of width ``m``, simulated a few
+    MB at a time.  Returns (masks int32[len(dests), nwords, m], nstages)."""
+    per = max(1, (1 << 22) // m)
+    parts = [pn.plan_routes(np.stack(dests[i: i + per]))
+             for i in range(0, len(dests), per)]
+    return np.concatenate([p[0] for p in parts]), parts[0][1]
+
+
+def attach_planned(classes: List[ClassPlan], nnz_b: int) -> None:
+    """Give the planned frontend to every ``pre`` class whose chunks the
+    host can schedule (the JAX planner's ``attach_planned``): per chunk, a
+    windowed gather schedule of the slots' B sources and a routing network
+    back to slot order, and the same for the A index of each run head
+    (with the heads as hold flags) while that schedule stays dense;
+    otherwise the A values stay per-slot gathers (dummy A arrays).
+
+    Eligible: a ``pre`` class of at most ``_PF_CHUNK_CAP`` slots a chunk,
+    B with at most ``_PF_TABLE_CAP_WORDS - 1300`` nonzeros, and a network
+    no wider than ``4 * _PF_CHUNK_CAP``.  A class whose first chunk over
+    that width is found stops being scheduled there: the JAX planner
+    drops it on its widest chunk, so the plans agree."""
+    if nnz_b + 1300 > _PF_TABLE_CAP_WORDS:
+        return
+    for c in classes:
+        if not c.pre or c.fill:
+            continue
+        L = c.rb * c.W
+        if L > _PF_CHUNK_CAP or c.W > L:
+            continue
+        scheds = []
+        for k in range(c.nchunks):
+            src, aidx = c.slot_src[k], c.slot_aidx[k]
+            pos = np.flatnonzero(src >= 0)
+            bsch = pn.plan_pgather(src[pos].astype(np.int64), 0)
+            if pn._pow2(max(bsch[0].shape[0] * 1024, L, 1024)) \
+                    > 4 * _PF_CHUNK_CAP:
+                break
+            hpos = _run_heads(src, aidx, c.W)
+            asch = pn.plan_pgather(aidx[hpos].astype(np.int64), 0)
+            scheds.append((pos, bsch, hpos, asch))
+        else:
+            _attach_schedules(c, scheds, L)
+
+
+def _attach_schedules(c: ClassPlan, scheds: list, L: int) -> None:
+    """Pad one class's per-chunk schedules to common network widths,
+    simulate their routes and stack them on the class."""
+    Gb = max(s[1][0].shape[0] for s in scheds)
+    Ga = max(s[3][0].shape[0] for s in scheds)
+    m_b = pn._pow2(max(Gb * 1024, L, 1024))
+    m_a = pn._pow2(max(Ga * 1024, L, 1024))
+    # the A route when its schedule stays dense; otherwise one gather per
+    # slot of the A values (a sparse, scrambled A index pads the schedule
+    # and the network with it)
+    a_route = m_a <= max(2 * pn._pow2(L), 2048)
+    host = {k: [] for k in _PF_FIELDS}
+    for pos, bsch, hpos, asch in scheds:
+        for k, v in zip(("bg_wblk", "bg_rowsel", "bg_lane"),
+                        pn.pad_schedule(bsch, m_b)):
+            host[k].append(v)
+        if a_route:
+            for k, v in zip(("ag_wblk", "ag_rowsel", "ag_lane"),
+                            pn.pad_schedule(asch, m_a)):
+                host[k].append(v)
+            fl = np.zeros(m_a, np.int32)
+            fl[hpos] = 1
+        else:
+            host["ag_wblk"].append(np.zeros(1, np.int32))
+            host["ag_rowsel"].append(np.zeros((8, 128), np.int32))
+            host["ag_lane"].append(np.zeros((8, 128), np.int32))
+            fl = np.zeros(1024, np.int32)
+        host["flags"].append(fl)
+    host["bt_masks"], nst_b = _routes(
+        [pn.route_dest(b[3], m_b, pos) for pos, b, _, _ in scheds], m_b)
+    if a_route:
+        host["at_masks"], nst_a = _routes(
+            [pn.route_dest(a[3], m_a, hpos) for _, _, hpos, a in scheds], m_a)
+    else:
+        m_a, nst_a = 1024, _PN_NSTAGES_1024
+        host["at_masks"] = np.zeros((len(scheds), 1, 1024), np.int32)
+    c.pf = True
+    c.pf_host = {k: v if isinstance(v, np.ndarray) else np.stack(v)
+                 for k, v in host.items()}
+    c.pf_spec = (m_b, nst_b, m_a, nst_a, a_route)
+
+
+def _demote_long_spans(classes: List[ClassPlan]) -> None:
+    """``pre`` classes with W > 1 that the planned frontend could not
+    schedule and whose entries span at least ``_DEMOTE_SPAN`` slots on
+    average fall back to the gather frontend (the JAX planner's rule:
+    there the hold-scan broadcasts the A value per entry, not per slot)."""
+    for c in classes:
+        live = c.ent_len[c.ent_len > 0]
+        span = float(live.mean()) if live.size else 0.0
+        if (c.pre and not c.pf and c.W > 1 and not c.fill
+                and span >= _DEMOTE_SPAN):
+            c.pre = False
+            c.slot_src = None
+            c.slot_aidx = None
+
+
+def needs_replan(plan: "BucketPlan") -> bool:
+    """The legacy-replan rule of the JAX pipeline: when the demoted
+    classes hold at least ``_REPLAN_SHARE`` of the slots outside fill
+    classes, the ``precompute=False`` plan (1.5x width grid, its own
+    chunking) serves the matrix better."""
+    nf = [(c, c.W * c.rb * c.nchunks) for c in plan.classes if not c.fill]
+    tot = sum(s for _, s in nf)
+    esc = sum(s for c, s in nf if not c.pre and not c.pf)
+    return bool(tot) and esc / tot >= _REPLAN_SHARE
+
+
 def _entries_numpy(a_ptr, a_col, b_ptr, p_ent, rows_c, rb, W, nchunks):
     """Per-entry descriptors of one class (the numpy twin of the native
     builder): entries that reference an empty B row are dropped."""
@@ -441,7 +598,7 @@ def _entries_numpy(a_ptr, a_col, b_ptr, p_ent, rows_c, rb, W, nchunks):
 def plan_buckets(a_ptr: np.ndarray, a_col: np.ndarray, b_ptr: np.ndarray,
                  min_width: int = 2, area_cap: int = 1 << 23,
                  vwords: int = 2, dma_fill: str = "off",
-                 precompute: bool = True) -> BucketPlan:
+                 precompute: bool = True, planned: str = "off") -> BucketPlan:
     """Bin rows into width classes, consolidate small classes, build
     per-chunk entry descriptors (native builder when the host library is
     present, numpy otherwise), and pick each class's frontend.
@@ -452,7 +609,12 @@ def plan_buckets(a_ptr: np.ndarray, a_col: np.ndarray, b_ptr: np.ndarray,
     model, "on" always.  ``precompute`` gives the power-of-two width grid
     and precomputed slot arrays to every class that does not fill;
     without it (the masked engine) the grid is ``_width_class`` from
-    ``min_width`` and such classes run the gather frontend.  Raises
+    ``min_width`` and such classes run the gather frontend.  ``planned``
+    ("on" or "off", resolved by the pipeline; it needs ``precompute``)
+    orders each class's rows by their first B source, caps non-fill
+    chunks at ``_PF_CHUNK_CAP`` slots, gives schedulable ``pre`` classes
+    the planned frontend (:func:`attach_planned`) and demotes the
+    long-span rest to the gather frontend.  Raises
     :class:`SlabOverflowError` when the slab needs more than int32
     indexing."""
     from ..utils import native as native_lib
@@ -508,10 +670,16 @@ def plan_buckets(a_ptr: np.ndarray, a_col: np.ndarray, b_ptr: np.ndarray,
         if int(sel.sum()) * (nxt - w) * slot_ns < _CLASS_MERGE_NS:
             wclass[sel] = nxt
 
+    pf_on = precompute and planned != "off"
     groups = []
     for W in sorted(set(wclass.tolist())):
         sel = wclass == W
         rows_c = active[sel]                            # original order
+        if pf_on:
+            # rows by their first B source, so each chunk covers a
+            # contiguous slice of the B table and its schedules stay dense
+            fsrc = b_ptr[a_col[a_ptr[rows_c]]]
+            rows_c = rows_c[np.argsort(fsrc, kind="stable")]
         cand = False
         if fill_ok and W <= fill_slot_cap:
             pc = int(p[sel].sum())
@@ -519,6 +687,8 @@ def plan_buckets(a_ptr: np.ndarray, a_col: np.ndarray, b_ptr: np.ndarray,
             cand = fill_force or (pc * stride / max(1, ec)
                                   >= _FILL_MIN_SPAN_WORDS)
         cap = fill_slot_cap if cand else area_cap
+        if pf_on and not cand:
+            cap = min(cap, _PF_CHUNK_CAP)     # bounds the network width
         rb = max(1, min(cap // W, quantize(max(1, rows_c.size))))
         groups.append((W, rows_c, rb, max(1, -(-rows_c.size // rb)), cand))
     area = sum(W * rb * nchunks for W, _, rb, nchunks, _ in groups)
@@ -551,6 +721,9 @@ def plan_buckets(a_ptr: np.ndarray, a_col: np.ndarray, b_ptr: np.ndarray,
         if precompute and not c.fill:
             _attach_slot_arrays(c)
         classes.append(c)
+    if pf_on and vwords in (1, 2):
+        attach_planned(classes, int(b_ptr[-1]))
+        _demote_long_spans(classes)
 
     # flat offset of each row's slab in the concatenated class slabs
     slab_row_start = np.zeros(m, dtype=np.int32)
@@ -578,6 +751,8 @@ _INT_FIELDS = ("W", "rb", "nchunks", "eb", "hold_passes", "seg_passes",
 _PRE_FIELDS = ("slot_src", "slot_aidx")
 _FILL_FIELDS = ("stride", "wrows", "out_rows", "win_row", "runs",
                 "row_len")
+_PF_FIELDS = ("bg_wblk", "bg_rowsel", "bg_lane", "bt_masks", "ag_wblk",
+              "ag_rowsel", "ag_lane", "at_masks", "flags")
 
 
 def plan_from_arrays(fields: dict) -> BucketPlan:
@@ -587,15 +762,16 @@ def plan_from_arrays(fields: dict) -> BucketPlan:
     a JAX package ``BucketPlan``).  A class holds every name in
     ``_CLASS_FIELDS``, plus the slot arrays when ``pre`` or the planar
     fill fields when ``fill``; without either it runs the gather
-    frontend.  A planned or grouped class (``pf``, ``G > 1``) or an
-    interleaved fill class raises: the port does not run them.  The
-    JAX ``dma_fill="interpret"`` reads as "on"."""
+    frontend.  A planned class (``pf``) also holds ``pf_host`` and
+    ``pf_spec`` (the JAX spec's interpret flag is dropped).  A grouped
+    class (``G > 1``) or an interleaved fill class raises: the port does
+    not run them.  The JAX ``dma_fill="interpret"`` reads as "on"."""
     classes = []
     for cf in fields["classes"]:
-        if cf.get("pf") or cf.get("G", 1) != 1:
+        if cf.get("G", 1) != 1:
             raise NotImplementedError(
-                "planned and grouped classes are not ported (ROADMAP "
-                "Queue 1 item 6)")
+                "grouped classes are a TPU-only transport device the port "
+                "does not carry (ROADMAP ground rules)")
         fill = bool(cf.get("fill"))
         if fill and not cf.get("planar"):
             raise NotImplementedError(
@@ -607,6 +783,17 @@ def plan_from_arrays(fields: dict) -> BucketPlan:
         for k, v in kw.items():
             kw[k] = int(v) if k in _INT_FIELDS else np.ascontiguousarray(
                 v, dtype=np.int32)
+        if cf.get("pf"):
+            if not pre or cf.get("pf_host") is None or not cf.get("pf_spec"):
+                raise ValueError("a planned class needs its slot arrays, "
+                                 "pf_host and pf_spec")
+            spec = tuple(cf["pf_spec"])
+            m_b, nst_b, m_a, nst_a = (int(x) for x in spec[:4])
+            kw.update(pf=True, pf_spec=(m_b, nst_b, m_a, nst_a,
+                                        bool(spec[-1])),
+                      pf_host={k: np.ascontiguousarray(cf["pf_host"][k],
+                                                       dtype=np.int32)
+                               for k in _PF_FIELDS})
         classes.append(ClassPlan(pre=pre, fill=fill, **kw))
     mode = fields.get("dma_fill", "off")
     return BucketPlan(
@@ -681,6 +868,40 @@ def attach_static_extract(plan: BucketPlan) -> None:
     full[: plan.m + 1] = cptr
     plan.cptr_h = full.astype(np.int32)
     plan.ext_static_dev = None
+    attach_planned_extract(plan)
+
+
+def attach_planned_extract(plan: BucketPlan) -> None:
+    """The planned extraction's schedules (the JAX
+    ``attach_static_extract``'s second half), when a class is planned:
+    the slab-to-CSR gather of each output chunk of ``_PF_CHUNK_CAP`` slots
+    as a ``pgather`` schedule of its slab sources and a routing network
+    back to output order.  None where a chunk's network would pass
+    ``4 * _PF_CHUNK_CAP``."""
+    plan.ext_pf = None
+    plan.ext_pf_spec = ()
+    plan.ext_pf_dev = None
+    if not (any(c.pf for c in plan.classes) and plan.nnz_c):
+        return
+    CH = _PF_CHUNK_CAP
+    nch = max(1, -(-plan.nnz_cap // CH))
+    scheds = []
+    for i in range(nch):
+        lo, hi = i * CH, min(plan.nnz_c, (i + 1) * CH)
+        srcs = (plan.ext_src_h[lo:hi].astype(np.int64) if hi > lo
+                else np.zeros(0, np.int64))
+        scheds.append(pn.plan_pgather(srcs, 0))
+        if pn._pow2(max(scheds[-1][0].shape[0] * 1024, CH, 1024)) \
+                > 4 * _PF_CHUNK_CAP:
+            return               # as the JAX planner on its widest chunk
+    m_e = pn._pow2(max(max(s[0].shape[0] for s in scheds) * 1024, CH, 1024))
+    pads = [pn.pad_schedule(s, m_e) for s in scheds]
+    masks, nst_e = _routes([pn.route_dest(s[3], m_e) for s in scheds], m_e)
+    plan.ext_pf = {"wblk": np.stack([p[0] for p in pads]),
+                   "rowsel": np.stack([p[1] for p in pads]),
+                   "lane": np.stack([p[2] for p in pads]),
+                   "masks": masks}
+    plan.ext_pf_spec = (m_e, nst_e, nch, CH)
 
 
 def build_extract_plan(crow: np.ndarray, slab_row_start: np.ndarray,
@@ -791,8 +1012,13 @@ _DEV_FIELDS = {
     "fill": ("rows_g", "ent_dst", "ent_len", "ent_aidx", "row_len",
              "win_row", "runs"),
     "pre": ("rows_g", "slot_src", "slot_aidx"),
+    "planned": ("rows_g", "slot_src", "slot_aidx") + _PF_FIELDS,
     "gather": ("rows_g", "ent_dst", "ent_src", "ent_len", "ent_aidx"),
 }
+
+
+def _host_field(c: ClassPlan, k: str) -> np.ndarray:
+    return c.pf_host[k] if k in _PF_FIELDS else getattr(c, k)
 
 
 def upload_plan(plan: BucketPlan, device) -> None:
@@ -802,10 +1028,11 @@ def upload_plan(plan: BucketPlan, device) -> None:
     if plan.dev is not None and plan.device == device:
         return
     plan.device = device
-    plan.dev = [{k: torch.as_tensor(getattr(c, k)).to(device)
+    plan.dev = [{k: torch.as_tensor(_host_field(c, k)).to(device)
                  for k in _DEV_FIELDS[c.frontend]} for c in plan.classes]
     plan.dev_slab_start = torch.as_tensor(plan.slab_row_start).to(device)
     plan.ext_static_dev = None
+    plan.ext_pf_dev = None
 
 
 def _product(AV, bv, valid):
@@ -922,6 +1149,53 @@ def expand_pre(slot_src, slot_aidx, a_val, b_col, b_val):
     return K, prod, valid
 
 
+def _words(v: torch.Tensor) -> list:
+    """The i32 word planes of a value array, read in place: the two words
+    of each f64 (low, high) as two strided views, or the one word of an
+    f32."""
+    w = v.view(torch.int32)
+    if v.dtype == torch.float64:
+        return [w[0::2], w[1::2]]
+    return [w]
+
+
+def _from_words(planes: list, dtype: torch.dtype) -> torch.Tensor:
+    """Values from their word planes (the inverse of :func:`_words`)."""
+    if dtype == torch.float64:
+        return torch.stack(planes, dim=-1).view(torch.float64).squeeze(-1)
+    return planes[0].contiguous().view(torch.float32)
+
+
+def front_planned(c: ClassPlan, d: dict, a_val, b_col, b_val):
+    """Planned frontend over all chunks of a class (the port of
+    ``_chunk_planned``, ``mh_spgemm_tpu/ops/bucketed.py:1473``): one
+    ``pgather`` of B's column and value words on the class's stacked
+    schedules and one ``proute`` back to slot order; for the A values one
+    ``pgather`` of the run heads' words and one ``proute`` with the hold
+    down each run, or, where the class has no A route, a plain gather by
+    the slot's A index.  Returns flat (K, prod, valid) as
+    :func:`expand_pre` does."""
+    m_b, nst_b, m_a, nst_a, a_route = c.pf_spec
+    L = c.rb * c.W
+    valid = d["slot_src"] >= 0                              # [nchunks, L]
+    g = pn.pgather([b_col] + _words(b_val), d["bg_wblk"], d["bg_rowsel"],
+                   d["bg_lane"])
+    r = pn.proute(g, d["bt_masks"], nst_b)[:, :, :L]
+    K = torch.where(valid, r[0], I32_MAX).reshape(-1)
+    bv = _from_words(list(r[1:]), b_val.dtype).reshape(-1)
+    if a_route:
+        ga = pn.pgather(_words(a_val), d["ag_wblk"], d["ag_rowsel"],
+                        d["ag_lane"])
+        ra = pn.proute(ga, d["at_masks"], nst_a, hold_w2=c.W,
+                       flags=d["flags"])[:, :, :L]
+        AV = _from_words(list(ra), a_val.dtype).reshape(-1)
+    else:
+        ai = torch.where(valid, d["slot_aidx"], 0).reshape(-1)
+        AV = a_val.index_select(0, ai)
+    valid = valid.reshape(-1)
+    return K, _product(AV, bv, valid), valid
+
+
 def seg_scan_rows(values, new, passes: int, op=torch.add):
     """Segmented inclusive scan along rows by ``op`` (a sum, or an OR of
     bit masks; ``new`` marks run starts): Hillis-Steele, ``passes``
@@ -1019,6 +1293,8 @@ def class_front(c: ClassPlan, d: dict, a_val, b_col, b_val, pairs2d):
     if c.fill:
         return front_fill(d, a_val, pairs2d, W=c.W, rb=c.rb,
                           stride=c.stride, out_rows=c.out_rows)
+    if c.pf:
+        return front_planned(c, d, a_val, b_col, b_val)
     if c.pre:
         return expand_pre(d["slot_src"], d["slot_aidx"], a_val, b_col,
                           b_val)
@@ -1118,6 +1394,28 @@ def bucketed_extract_static(slabs, ext_src, *, nnz_c: int):
     return ccol, cval
 
 
+def bucketed_extract_planned(slabs, ext_dev: tuple, spec: tuple, *,
+                             nnz_cap: int, nnz_c: int):
+    """Planned extraction (the port of ``bucketed_extract_planned``,
+    ``mh_spgemm_tpu/ops/bucketed.py:1845``): one ``pgather`` of the class
+    slabs' column and value words (the values read in place) on every
+    output chunk's schedule and one ``proute`` to output order, all
+    chunks in one call each.  Returns (col, val), ``nnz_cap`` long, zero
+    past ``nnz_c``."""
+    m_e, nst_e, nch, CH = spec
+    wblk, rowsel, lane, masks = ext_dev
+    vals = _flat([s[1] for s in slabs])
+    g = pn.pgather([_flat([s[0] for s in slabs])] + _words(vals), wblk,
+                   rowsel, lane)
+    r = pn.proute(g, masks, nst_e)[:, :, :CH].reshape(g.shape[0], -1)
+    r = r[:, :nnz_cap]
+    ok = torch.arange(nnz_cap, device=r.device) < nnz_c
+    ccol = torch.where(ok, r[0], 0)
+    cval = torch.where(ok, _from_words(list(r[1:]), vals.dtype),
+                       torch.zeros((), dtype=vals.dtype, device=r.device))
+    return ccol, cval
+
+
 def extract_stream(slabs, ext: ExtractPlan) -> torch.Tensor:
     """The windowed extraction's planar source stream: [bias | column
     plane | value word planes], each plane ``ext.area_pad`` words, then
@@ -1198,15 +1496,31 @@ def run_bucketed(plan: BucketPlan, a_val, b_col, b_val, pairs2d=None, *,
 
 
 def extract_warm(plan: BucketPlan, slabs):
-    """Extraction of a warm plan (nnz(C) known on the host): the windowed
-    copy when the plan has one, else the static gather.  Returns
-    (ccol, cval)."""
+    """Extraction of a warm plan (nnz(C) known on the host), in the JAX
+    package's order of preference: the windowed copy when the plan has
+    one, else the planned extraction when it has that, else the static
+    gather.  Returns (ccol, cval)."""
     if plan.ext is not None:
         return bucketed_extract_windowed(slabs, plan.ext,
                                          nnz_cap=plan.nnz_cap,
                                          nnz_c=plan.nnz_c)
+    if plan.ext_pf is not None:
+        return bucketed_extract_planned(slabs, planned_extract_dev(plan),
+                                        plan.ext_pf_spec,
+                                        nnz_cap=plan.nnz_cap,
+                                        nnz_c=plan.nnz_c)
     return bucketed_extract_static(slabs, static_dev(plan)[0],
                                    nnz_c=plan.nnz_c)
+
+
+def planned_extract_dev(plan: BucketPlan) -> tuple:
+    """The planned extraction's schedules (wblk, rowsel, lane, masks) on
+    the plan's device, uploaded once."""
+    if plan.ext_pf_dev is None:
+        plan.ext_pf_dev = tuple(
+            torch.as_tensor(plan.ext_pf[k]).to(plan.device)
+            for k in ("wblk", "rowsel", "lane", "masks"))
+    return plan.ext_pf_dev
 
 
 def static_dev(plan: BucketPlan) -> tuple:

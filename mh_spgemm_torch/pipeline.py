@@ -19,7 +19,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .config import DEFAULT_CONFIG, SpGEMMConfig, check_supported, fill_mode
+from .config import (DEFAULT_CONFIG, SpGEMMConfig, check_supported,
+                     fill_mode, planned_mode)
 from .csr import CSR, DeviceCSR
 from .errors import DeviceError, ShapeMismatchError, SpGEMMError, require
 from .ops import blockdense as blockdense_ops
@@ -68,11 +69,16 @@ def resolve_device(device=None) -> torch.device:
 class BucketedState:
     """Cached per-(A, B) state: the bucket plan (with its device tensors
     and learned capacities) and the operands on the device, the planar
-    fill stream of B among them when a class fills."""
+    fill stream of B among them when a class fills.  ``planned`` is the
+    resolved ``planned`` setting the plan was made under, and
+    ``replanned`` says that the legacy-replan rule replaced its planned
+    plan."""
 
     plan: bucketed_ops.BucketPlan
     device: torch.device
     route: str                  # "kernel" or "sort" (config.esc_tail)
+    planned: str = "off"        # resolved: "on" or "off"
+    replanned: bool = False
     a_val: Optional[torch.Tensor] = None
     b_col: Optional[torch.Tensor] = None
     b_val: Optional[torch.Tensor] = None
@@ -92,22 +98,43 @@ def _require_fill(planned: str, config: SpGEMMConfig, device) -> None:
             f"{fill_mode(config, device)!r}")
 
 
+def _require_planned(state: BucketedState, config: SpGEMMConfig) -> None:
+    """A warm call runs a plan only under the ``planned`` setting it was
+    made for: the planned classes and extraction are fixed in the plan."""
+    want = planned_mode(config, state.device)
+    require(state.planned == want, SpGEMMError,
+            f"state was prepared under planned={state.planned!r}, not "
+            f"{want!r}")
+
+
 def prepare_bucketed_state(A: CSR, B: CSR,
                            config: SpGEMMConfig = DEFAULT_CONFIG,
                            device=None) -> BucketedState:
     """Host-side planning for the bucketed engine (the ``state=None``
     branch of :func:`spgemm_bucketed`): precomputed-slot classes on the
-    power-of-two grid, and fill classes where ``config.dma_fill``
-    resolves for ``device`` to allow them (:func:`config.fill_mode`).
-    ``config.min_bucket_width`` does not shape these plans (it shapes the
-    masked engine's)."""
+    power-of-two grid; fill classes where ``config.dma_fill`` resolves
+    for ``device`` to allow them (:func:`config.fill_mode`); and, where
+    ``config.planned`` resolves to "on" (:func:`config.planned_mode`), the
+    planned frontend and the long-span demotion, then the JAX pipeline's
+    legacy-replan rule (:func:`ops.bucketed.needs_replan`): a plan whose
+    demoted classes dominate is made again with ``precompute=False`` (the
+    1.5x grid from ``config.min_bucket_width``, gather or fill classes).
+    ``config.min_bucket_width`` shapes no other plan."""
     route = check_supported(config)
     dev = resolve_device(device)
-    plan = bucketed_ops.plan_buckets(
-        A.ptr, A.col, B.ptr, min_width=config.min_bucket_width,
-        area_cap=config.bucket_area_cap, vwords=_vwords(config),
-        dma_fill=fill_mode(config, dev), precompute=True)
-    return BucketedState(plan=plan, device=dev, route=route)
+    planned = planned_mode(config, dev)
+    kw = dict(min_width=config.min_bucket_width,
+              area_cap=config.bucket_area_cap, vwords=_vwords(config),
+              dma_fill=fill_mode(config, dev))
+    plan = bucketed_ops.plan_buckets(A.ptr, A.col, B.ptr, precompute=True,
+                                     planned=planned, **kw)
+    replanned = planned != "off" and bucketed_ops.needs_replan(plan)
+    if replanned:
+        plan = bucketed_ops.plan_buckets(A.ptr, A.col, B.ptr,
+                                         precompute=False, planned="off",
+                                         **kw)
+    return BucketedState(plan=plan, device=dev, route=route,
+                         planned=planned, replanned=replanned)
 
 
 def _upload_operands(state, A: CSR, B: CSR, vdtype: torch.dtype) -> None:
@@ -148,6 +175,7 @@ def spgemm_bucketed(A: CSR, B: CSR,
         require(state.route == route, SpGEMMError,
                 "state was prepared under another esc_tail setting")
         _require_fill(state.plan.dma_fill, config, state.device)
+        _require_planned(state, config)
         plan = state.plan
     dev = state.device
 

@@ -166,13 +166,17 @@ def test_device_stage_on_jax_plan(name):
 
 
 def test_plan_from_arrays_rejects_other_frontends():
-    """Planned and grouped classes, and interleaved fill classes, are
-    not ported; fill and gather classes are (see the fill tests)."""
+    """Grouped classes and interleaved fill classes are not ported; fill,
+    gather and planned classes are (see the fill tests and
+    tests/test_torch_planned.py), and a planned class without its
+    schedules is refused."""
     A = gen.tiny_fixture()
-    for extra in ({"pf": True}, {"G": 2}, {"fill": True}):
+    for extra, err in (({"pf": True}, ValueError),
+                       ({"G": 2}, NotImplementedError),
+                       ({"fill": True}, NotImplementedError)):
         fields = plan_fields(jax_plan(A, A))
         fields["classes"][0] = dict(fields["classes"][0], **extra)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(err):
             tbk.plan_from_arrays(fields)
 
 

@@ -1,9 +1,9 @@
 """CUDA-only tests of the PyTorch port: each kernel (esc_tail_flat and its
-slab form esc_tail, ragged_fill, the two pair matmuls, block_gather)
-against its plain PyTorch version on the card, and the bucketed (with and
-without the fill frontend), block-dense (with the windowed extraction)
-and masked engines on the card against the scipy oracle.  They skip where
-there is no CUDA device.
+slab form esc_tail, ragged_fill, the two pair matmuls, block_gather,
+pgather and proute) against its plain PyTorch version on the card, and
+the bucketed (with and without the fill frontend, planned and not),
+block-dense (with the windowed extraction) and masked engines on the card
+against the scipy oracle.  They skip where there is no CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine with only torch: ``python -m pytest --noconftest
@@ -19,6 +19,7 @@ from mh_spgemm_torch.bench import gen
 from mh_spgemm_torch.ops import bucketed as bk
 from mh_spgemm_torch.ops import esc_tail as et
 from mh_spgemm_torch.ops import pair_matmul as pm
+from mh_spgemm_torch.ops import planned as pn
 from mh_spgemm_torch.ops import ragged_fill as rf
 from mh_spgemm_torch.pipeline import (spgemm_blockdense, spgemm_bucketed,
                                       spgemm_masked)
@@ -252,3 +253,88 @@ def test_blockdense_windowed_on_card(cuda):
         assert C.host().equals(ref, tol=1e-9)
     assert state.plan.ext is not None
     assert rf.ragged_fill.launches > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nplanes", [1, 2, 3])
+@pytest.mark.parametrize("S,T", [(1000, 4096), (30000, 2000), (5000, 300000)])
+def test_pgather_matches_plain(cuda, S, T, nplanes):
+    """Every output word against the plain version, and the scheduled
+    positions against the table read at their sources (exact); the
+    planes are read in place, one of them strided."""
+    rng = np.random.default_rng(S + nplanes)
+    src = rng.integers(0, T, S).astype(np.int64)
+    wblk, rowsel, lane, perm = pn.plan_pgather(src, T)
+    sched = [torch.from_numpy(x).to(cuda) for x in (wblk, rowsel, lane)]
+    words = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (T, 2),
+                                          dtype=np.int64).astype(np.int32))
+    words = words.to(cuda)
+    tabs = [words[:, 0], words[:, 1], words[:, 0].contiguous() + 7][:nplanes]
+    before = pn.pgather.launches
+    out = pn.pgather(tabs, *sched)
+    torch.cuda.synchronize()
+    assert pn.pgather.launches == before + 1
+    assert torch.equal(out, pn.pgather_plain(tabs, *sched))
+    live = torch.from_numpy(np.flatnonzero(perm >= 0)).to(cuda)
+    at = torch.from_numpy(src[perm[perm >= 0]]).to(cuda)
+    for p, t in enumerate(tabs):
+        assert torch.equal(out[p][live], t[at])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nplanes", [1, 2, 3])
+@pytest.mark.parametrize("m,hold_w2", [(1024, 1), (1024, 8), (32768, 2048),
+                                       (131072, 8), (131072, 32768)])
+def test_proute_matches_plain(cuda, m, hold_w2, nplanes):
+    """Three networks at once: every word against the plain version, and
+    without the hold against out[dest] = in (exact).  Masks of random bits
+    check that each position applies its own bit."""
+    rng = np.random.default_rng(m + hold_w2 + nplanes)
+    nb = 3
+    dest = np.stack([rng.permutation(m) for _ in range(nb)])
+    masks, nst = pn.plan_routes(dest)
+    planes = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (nplanes, nb, m),
+                                           dtype=np.int64).astype(np.int32))
+    flags = torch.from_numpy((rng.random((nb, m)) < 0.1).astype(np.int32))
+    x, mk, fl = planes.to(cuda), torch.from_numpy(masks).to(cuda), \
+        flags.to(cuda)
+    before = pn.proute.launches
+    out = pn.proute(x, mk, nst, hold_w2=hold_w2, flags=fl)
+    torch.cuda.synchronize()
+    assert pn.proute.launches == before + 1
+    assert torch.equal(out, pn.proute_plain(x, mk, nst, hold_w2=hold_w2,
+                                            flags=fl))
+    if hold_w2 == 1:
+        want = torch.empty_like(x)
+        d = torch.from_numpy(dest).to(cuda)
+        for b in range(nb):
+            want[:, b, d[b]] = x[:, b]
+        assert torch.equal(out, want)
+    rand = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, masks.shape,
+                                         dtype=np.int64).astype(np.int32))
+    rand = rand.to(cuda)
+    assert torch.equal(pn.proute(x, rand, nst, hold_w2=hold_w2, flags=fl),
+                       pn.proute_plain(x, rand, nst, hold_w2=hold_w2,
+                                       flags=fl))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("value_dtype", ["float64", "float32"])
+def test_planned_engine_on_card(cuda, value_dtype):
+    """The default config plans this matrix's classes on the planned
+    frontend on the card; cold and warm calls (the warm ones through the
+    planned extraction) give the oracle's C."""
+    A = gen.powerlaw(3000, avg_nnz=5, seed=42)
+    ref = oracle_spgemm(A, A)
+    cfg = SpGEMMConfig(value_dtype=value_dtype)
+    tol = 1e-9 if value_dtype == "float64" else 1e-4
+    before = (pn.pgather.launches, pn.proute.launches)
+    state = None
+    for _ in range(3):                        # cold, then warm
+        C, state = spgemm_bucketed(A, A, config=cfg, state=state,
+                                   device=cuda)
+        assert C.host().equals(ref, tol=tol)
+    assert state.planned == "on"
+    assert any(c.pf for c in state.plan.classes)
+    assert state.plan.ext is not None or state.plan.ext_pf is not None
+    assert pn.pgather.launches > before[0] and pn.proute.launches > before[1]

@@ -11,10 +11,11 @@ Tolerances: ptr and col exact; values within ``CSR.equals`` tol 1e-9
 in f64; 1e-4 in f32, where the two tails sum in different orders.
 
 Also here: every setting the port does not run yet raises and names its
-ROADMAP item (settings ported since, ``mode="masked"`` and
-``dma_fill="on"``, run and give the oracle's C), the modes and ``ozaki``
-settings it does run route as configured, and ``esc_tail="off"`` routes
-every class through the sort tail.
+ROADMAP item (settings ported since, ``mode="masked"``, ``dma_fill="on"``
+and ``planned="on"``, run and give the oracle's C; the Pallas
+interpreter's "interpret" raises), the modes and ``ozaki`` settings it
+does run route as configured, and ``esc_tail="off"`` routes every class
+through the sort tail.
 """
 
 import numpy as np
@@ -146,8 +147,9 @@ def test_default_device_needs_cuda():
     # the Pallas interpreter has no counterpart in the port
     pytest.param("dma_fill", "interpret", "Pallas interpreter",
                  id="dma_fill-interpret-Queue 2 item 3"),
-    ("planned", "on", "Queue 2 items 4-5"),
-    ("planned", "interpret", "Queue 2 items 4-5"),
+    pytest.param("planned", "on", None, id="planned-on-Queue 2 items 4-5"),
+    pytest.param("planned", "interpret", "Pallas interpreter",
+                 id="planned-interpret-Queue 2 items 4-5"),
     ("df32", "on", "ground rules"),
     ("wide_gather", "on", "ground rules"),
     ("group_gather", "on", "ground rules"),
@@ -233,7 +235,8 @@ def test_auto_and_off_settings_run(field):
 def test_state_keeps_its_dma_fill(engine):
     """A warm call runs a state only under the dma_fill it was prepared
     for, as resolved for the state's device: "on" and "off" refuse each
-    other's state, and on the CPU "auto" (off there) takes "off"'s."""
+    other's state, and on the CPU "auto" (off there) takes "off"'s.  The
+    bucketed engine's states keep their planned setting the same way."""
     run = {"bucketed": spgemm_bucketed, "masked": spgemm_masked,
            "blockdense": spgemm_blockdense}[engine]
     A = gen.banded(300, band=12, nnz_per_row=6, seed=5)
@@ -245,6 +248,12 @@ def test_state_keeps_its_dma_fill(engine):
             run(A, A, config=cfg, state=st)
     C, _ = run(A, A, config=auto, state=st_off)
     assert C.host().equals(oracle_spgemm(A, A), tol=1e-9)
+    if engine == "bucketed":
+        _, pl_on = run(A, A, config=SpGEMMConfig(planned="on"), device="cpu")
+        for cfg, st in ((SpGEMMConfig(planned="off"), pl_on),
+                        (SpGEMMConfig(planned="on"), st_off)):
+            with pytest.raises(SpGEMMError, match="planned"):
+                run(A, A, config=cfg, state=st)
 
 
 @pytest.mark.parametrize("esc_tail,route", [("auto", "kernel"),
