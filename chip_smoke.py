@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit and the torch version.
-2. Builds the four CUDA sources (``mh_spgemm_torch/csrc/esc_tail.cu``,
-   ``pair_matmul.cu``, ``ragged_fill.cu`` and ``planned.cu``) with nvcc
-   for sm_90a into ``build/``, one nvcc per source, started together;
-   prints the build times and the registers and spills ptxas reports.
+2. Builds the five CUDA sources (``mh_spgemm_torch/csrc/esc_tail.cu``,
+   ``pair_matmul.cu``, ``ragged_fill.cu``, ``planned.cu`` and
+   ``remote_fetch.cu``) with nvcc for sm_90a into ``build/``, one nvcc per
+   source, started together; prints the build times and the registers and
+   spills ptxas reports.
 3. Kernel phase: ``esc_tail_flat`` against its plain PyTorch version on
    the card for w2 in {2, 8, 256, 2048, 8192, 32768, 65536}, f64 and
    f32, on duplicate-heavy, empty and all-same-key segments (keys and
@@ -35,7 +36,11 @@
    the summed terms, the same pair product over |a| and |b|: two f32
    summation orders of up to 8192 random-sign terms differ by more than
    1e-4 absolute where the sum cancels to near zero); ``block_gather``
-   against ``index_select`` for f64, f32 and int32 (exact).
+   against ``index_select`` for f64, f32 and int32 (exact);
+   ``halo_exchange`` against its plain version and against
+   ``torch.stack(sends).transpose(0, 1)`` for D in {1, 2, 4, 8} and vr in
+   {1, 3, 336, 5376}, every shard in its own allocation (exact), and
+   ``exchange_planes`` round-tripping 3 planes of cap 300.
 4. Bucketed phase: ``spgemm_host`` and ``spgemm_bucketed`` (one cold
    call, then warm calls reusing the state) under the default config
    (``planned="auto"``: the planned frontend on the card) on the
@@ -74,7 +79,25 @@
    ``ragged_fill``, set to 0 before each matrix, must have run for both
    (scircuit's tile fill, cage12's windowed extraction).  Prints warm
    ms, GFLOPS, cold ms, the classes by frontend and their tile widths.
-8. Kernel timing (CUDA events, warm, many launches), each kernel beside
+8. Distributed phase (after the masked phase): ``spgemm_dist`` on D=8
+   shards of the one card (``make_row_mesh(8)``; grid2d on 4 x 2) on
+   the full-size stand-ins: scircuit under ``replicate``, ``allgather``,
+   ``ragged`` ("xla" and "pallas"), ``ragged_overlap`` as its model
+   decides and forced, and ``grid2d``; cage12 under ``ragged`` (both
+   backends) and once with ``dma_fill="on"``.  Each cold (host wall
+   clock), then warm through its state (CUDA events: a whole call, and
+   the shard program alone), every C against the oracle within 1e-9;
+   prints per call D, the shard classes (W, rb, nchunks, fill), plan_s,
+   cold, warm and program ms and the words exchanged.  The launch counts,
+   set to 0 before the phase, must have grown for ``halo_exchange`` and
+   ``esc_tail``, and ``ragged_fill``'s, set to 0 before the forced-fill
+   call, in that call.  Then each stand-in's two backends' warm calls in
+   turns (pallas, xla, xla, pallas), and ``halo_exchange`` timed at both
+   stand-ins' D=8 exchange shapes beside its plain version, the stack
+   yardstick and its byte bound.  Then ``python -m
+   mh_spgemm_torch.bench.dist_bench scircuit --max-devices 8`` in a
+   subprocess must exit 0, pass every check and print nothing of JAX.
+9. Kernel timing (CUDA events, warm, many launches), each kernel beside
    its plain version, one PyTorch call computing the same function and
    its bound: ``esc_tail_flat`` on cage12's W=256 class under
    ``planned="off"`` (``torch.sort``),
@@ -86,12 +109,13 @@
    indices; one ``index_copy_`` by the host-simulated destinations), and
    the pair matmuls and ``block_gather`` at pwtk's shapes (``torch.bmm``
    of the pre-gathered pairs, ``torch.index_select``).
-9. CLI phase: ``python -m mh_spgemm_torch pdb1HYS --check --stats --json
+10. CLI phase: ``python -m mh_spgemm_torch pdb1HYS --check --stats --json
    --iters 3`` in a subprocess must exit 0, pass its check on the
    block-dense engine, and print nothing of JAX; ``python -m
    mh_spgemm_torch scircuit --mode masked --check --iters 2`` must exit
    0 and pass.
-10. Prints ``{"kernels": [...]}``, the card's name and power limit, and,
+11. Prints ``{"kernels": [...]}`` (all nine kernels), the card's name and
+   power limit, and,
    as the last line, ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds.  Any failed check raises, so the script
@@ -101,6 +125,7 @@ where CUDA is not available.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -117,7 +142,8 @@ FP32_FLOPS = 67e12              # H100 SXM data sheet, FP32 (non-tensor)
 W2S = (2, 8, 256, 2048, 8192, 32768, 65536)
 MATRICES = ("scircuit", "cage12", "webbase-1M")
 BD_MATRICES = ("pdb1HYS", "pwtk")
-SOURCES = ("esc_tail", "pair_matmul", "ragged_fill", "planned")
+SOURCES = ("esc_tail", "pair_matmul", "ragged_fill", "planned",
+           "remote_fetch")
 PLANNED_MATRICES = ("scircuit", "webbase-1M")   # must run planned classes
 REPLANNED_MATRIX = "cage12"                     # must be replanned
 PLANNED_TIMING = "scircuit"
@@ -125,6 +151,24 @@ MASKED_MATRICES = ("scircuit", "cage12")
 FILL_MATRIX = "cage12"
 WARM_CALLS = 20
 BD_WARM_CALLS = 10
+DIST_WARM_CALLS = 5
+DIST_SHARDS = 8
+HALO_DS = (1, 2, 4, 8)
+HALO_VRS = (1, 3, 336, 5376)
+# (matrix, strategy, comm_backend, dma_fill, overlap forced); on D=8
+# shards of the one card, grid2d on 4 x 2
+DIST_CALLS = (
+    ("scircuit", "replicate", "xla", "auto", False),
+    ("scircuit", "allgather", "xla", "auto", False),
+    ("scircuit", "ragged", "xla", "auto", False),
+    ("scircuit", "ragged", "pallas", "auto", False),
+    ("scircuit", "ragged_overlap", "xla", "auto", False),
+    ("scircuit", "ragged_overlap", "xla", "auto", True),
+    ("scircuit", "grid2d", "xla", "auto", False),
+    ("cage12", "ragged", "xla", "auto", False),
+    ("cage12", "ragged", "pallas", "auto", False),
+    ("cage12", "ragged", "pallas", "on", False),
+)
 I32_MAX = 2**31 - 1
 BS = 128
 
@@ -895,6 +939,249 @@ def masked_phase(torch, mt, rf, mats: dict, refs: dict, dev) -> dict:
     return launches
 
 
+def halo_kernel_phase(torch, rfx, dev) -> int:
+    """halo_exchange against its plain version and against the yardstick
+    ``torch.stack(sends).transpose(0, 1)`` for D in HALO_DS and vr in
+    HALO_VRS, the shards in separate allocations, exact on every word;
+    then exchange_planes round-trips 3 planes of cap 300.  Returns the
+    max abs error (0 when the run gets here)."""
+    rng = np.random.default_rng(6)
+    for D in HALO_DS:
+        for vr in HALO_VRS:
+            sends = [torch.from_numpy(rng.integers(
+                -2**31, 2**31 - 1, (D, vr, 128), dtype=np.int64).astype(
+                    np.int32)).to(dev) for _ in range(D)]
+            got = rfx.halo_exchange(sends, n_devices=D)
+            torch.cuda.synchronize()
+            want = rfx.halo_exchange_plain(sends, n_devices=D)
+            lib = torch.stack(sends).transpose(0, 1).contiguous()
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"halo_exchange differs from its plain version (D={D}, "
+                  f"vr={vr})")
+            check(all(torch.equal(g, lib[s]) for s, g in enumerate(got)),
+                  f"halo_exchange differs from the stack yardstick (D={D}, "
+                  f"vr={vr})")
+            print(f"kernel halo_exchange D={D} vr={vr:5d} "
+                  f"words={D * D * vr * 128} exact ok", flush=True)
+            del sends, got, want, lib
+    D, cap = 4, 300
+    planes = [[torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (D, cap),
+                                             dtype=np.int64).astype(
+                                                 np.int32)).to(dev)
+               for _ in range(3)] for _ in range(D)]
+    got = rfx.exchange_planes(planes, n_devices=D)
+    check(all(torch.equal(got[s][i][d], planes[d][i][s])
+              for s in range(D) for i in range(3) for d in range(D)),
+          "exchange_planes does not round-trip 3 planes of cap 300")
+    print("kernel exchange_planes D=4 cap=300 planes=3 exact ok",
+          flush=True)
+    return 0
+
+
+def dist_classes(st) -> list:
+    """(W, rb, nchunks, fill) of every class of shard 0's plan(s)."""
+    plans = st["plans"]
+    groups = plans if isinstance(plans, tuple) else (plans,)
+    return [[(c.W, c.rb, c.nchunks, c.fill) for c in g[0].classes]
+            for g in groups]
+
+
+def profile_program(torch, st, program_ms: float, label: str) -> dict:
+    """One run of a distributed state's shard program under
+    ``torch.profiler``: the CUDA kernels it launched and their summed
+    device time, and the device's idle share against ``program_ms`` (the
+    program's CUDA-event time without the profiler).  Where the profiler
+    fails or records no device time (no CUPTI tracing), the row says "not
+    measured"."""
+    from torch.profiler import ProfilerActivity, profile
+    row = {"label": label, "program_ms": program_ms}
+    try:
+        st["fn"](*st["args"])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            st["fn"](*st["args"])
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        busy_us = sum(getattr(e, "device_time", None)
+                      or getattr(e, "cuda_time", 0.0) for e in kern)
+        if not kern or busy_us <= 0:
+            row["profile"] = "not measured (no device events)"
+        else:
+            row.update(kernels=len(kern), busy_ms=busy_us / 1e3,
+                       idle_share=1.0 - busy_us / 1e3 / program_ms)
+    except Exception as exc:            # the measurement only, not a check
+        row["profile"] = f"not measured ({type(exc).__name__}: {exc})"
+    print("dist_profile " + json.dumps(row), flush=True)
+    return row
+
+
+def dist_phase(torch, mt, rfx, et, rf, mats: dict, refs: dict):
+    """spgemm_dist on D=8 shards of the one card (grid2d on 4 x 2) for
+    each of DIST_CALLS: cold (host wall clock, planning included), then
+    warm through the state (CUDA events: a whole call, host assembly
+    included, and the shard program alone); every C against the oracle.
+    The launch counts are set to 0 before the phase; ragged_fill's again
+    before the forced-fill call.  Then the two backends' warm calls in
+    turns (pallas, xla, xla, pallas) on scircuit and cage12.  Returns
+    (rows, launches, pallas states)."""
+    from mh_spgemm_torch.parallel.mesh import make_grid_mesh, make_row_mesh
+    from mh_spgemm_torch.parallel.spgemm_dist import spgemm_dist
+    counted = (rfx.halo_exchange, et.esc_tail, et.esc_tail_flat,
+               rf.ragged_fill)
+    for fn in counted:
+        fn.launches = 0
+    mesh = make_row_mesh(DIST_SHARDS)
+    grid = make_grid_mesh(DIST_SHARDS // 2, 2)
+    check(mesh.size == DIST_SHARDS and len(set(mesh.devices)) == 1,
+          f"the mesh is not {DIST_SHARDS} shards on one card")
+    rows, states, fill_launches = [], {}, None
+    for name, strategy, backend, fill, force in DIST_CALLS:
+        A, ref = mats[name], refs[name]
+        cfg = mt.SpGEMMConfig(comm_backend=backend, dma_fill=fill)
+        m = grid if strategy == "grid2d" else mesh
+        if fill == "on":
+            rf.ragged_fill.launches = 0
+        if force:
+            os.environ["MHSPGEMM_FORCE_OVERLAP"] = "1"
+        st = {}
+        try:
+            t0 = time.perf_counter()
+            C = spgemm_dist(A, None, m, config=cfg, b_strategy=strategy,
+                            state=st)
+            cold_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            os.environ.pop("MHSPGEMM_FORCE_OVERLAP", None)
+        label = f"{name} {strategy} {backend} dma_fill={fill}"
+        check(C.equals(ref, tol=1e-9), f"dist {label}: cold != oracle")
+        out = {}
+
+        def warm():
+            out["C"] = spgemm_dist(A, None, m, config=cfg,
+                                   b_strategy=strategy, state=st)
+
+        warm_ms = cuda_ms(warm, DIST_WARM_CALLS, warmup=1)
+        check(out["C"].equals(ref, tol=1e-9), f"dist {label}: warm != "
+              "oracle")
+        device_ms = cuda_ms(lambda: st["fn"](*st["args"]), DIST_WARM_CALLS,
+                            warmup=1)
+        overlap = isinstance(st["plans"], tuple)
+        if strategy == "ragged_overlap":
+            check(overlap or not force, f"dist {label}: forced overlap "
+                  "fell back to ragged")
+        if fill == "on":
+            fill_launches = rf.ragged_fill.launches
+            check(fill_launches > 0 and any(
+                c[3] for c in dist_classes(st)[0]),
+                f"dist {label}: no fill class ran ragged_fill")
+        row = {"matrix": name, "D": m.size,
+               "grid": st.get("grid"), "strategy": strategy,
+               "backend": backend, "dma_fill": fill,
+               "overlap_forced": force, "overlap_ran": overlap,
+               "classes": dist_classes(st), "plan_s": st["plan_s"],
+               "cold_ms": cold_ms, "warm_ms": warm_ms,
+               "device_ms": device_ms,
+               "exchanged_words": st["exchanged_words"],
+               "nnz_c": ref.nnz}
+        print("dist " + json.dumps(row), flush=True)
+        rows.append(row)
+        if strategy == "ragged" and fill == "auto":
+            states[(name, backend)] = st
+            if backend == "pallas":
+                row["profile"] = profile_program(torch, st, device_ms, label)
+        del C, out
+    launches = {fn.__name__: fn.launches for fn in counted}
+    launches["ragged_fill_forced_fill_call"] = fill_launches
+    print("dist launches " + json.dumps(launches), flush=True)
+    check(launches["halo_exchange"] > 0, "halo_exchange was not launched "
+          "on the distributed path")
+    check(launches["esc_tail"] > 0, "esc_tail was not launched on the "
+          "distributed path")
+    for name in ("scircuit", "cage12"):
+        A = mats[name]
+        turns = {"pallas": [], "xla": []}
+        for backend in ("pallas", "xla", "xla", "pallas"):
+            st = states[(name, backend)]
+            cfg = mt.SpGEMMConfig(comm_backend=backend)
+            turns[backend].append(cuda_ms(
+                lambda: spgemm_dist(A, None, mesh, config=cfg,
+                                    b_strategy="ragged", state=st),
+                DIST_WARM_CALLS, warmup=1))
+        print("dist_turns " + json.dumps({"matrix": name, "warm_ms": turns}),
+              flush=True)
+    return rows, launches, states
+
+
+def time_halo(torch, rfx, states: dict) -> dict:
+    """halo_exchange at the D=8 ragged exchange shapes of scircuit and
+    cage12 (the pallas states' packed [D, 3 * vr1, 128] blocks, random
+    words), beside its plain version, the stack yardstick and its bound:
+    each word read once and written once."""
+    res = {}
+    rng = np.random.default_rng(7)
+    for name in ("scircuit", "cage12"):
+        st = states[(name, "pallas")]
+        D = DIST_SHARDS
+        words = st["exchanged_words"]
+        rows = words // (D * D * 128)
+        dev = st["args"][0][0].device
+        sends = [torch.from_numpy(rng.integers(
+            -2**31, 2**31 - 1, (D, rows, 128), dtype=np.int64).astype(
+                np.int32)).to(dev) for _ in range(D)]
+        ms = cuda_ms(lambda: rfx.halo_exchange(sends, n_devices=D), 20)
+        # the launch alone: the C entry on prebuilt pointer tables, no
+        # wrapper (checks, allocation, tables)
+        recvs = rfx.halo_exchange(sends, n_devices=D)
+        fn, _ = rfx._kernel_fns()
+        vp = ctypes.c_void_p * D
+        sp, rp = (vp(*[t.data_ptr() for t in x]) for x in (sends, recvs))
+        stream = torch.cuda.current_stream().cuda_stream
+        launch_ms = cuda_ms(lambda: fn(sp, rp, D, rows * 128, stream), 20)
+        plain_ms = cuda_ms(lambda: rfx.halo_exchange_plain(
+            sends, n_devices=D), 5)
+        lib_ms = cuda_ms(
+            lambda: torch.stack(sends).transpose(0, 1).contiguous(), 20)
+        nbytes = words * 4 * 2
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        res[name] = {"ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes", "words": words, "block_rows": rows}
+        print(f"timing halo_exchange at {name}'s D={D} ragged exchange "
+              f"({D}x{D} blocks of {rows} rows, {words} words): {ms:.4f} ms "
+              f"(the launch alone {launch_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, stack+transpose {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({nbytes} B)", flush=True)
+        del sends, recvs
+    return res
+
+
+def dist_bench_phase() -> dict:
+    """dist_bench on scircuit with --max-devices 8 in a subprocess: exit
+    0, every check passes, nothing of JAX in its output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "mh_spgemm_torch.bench.dist_bench",
+           "scircuit", "--strategy", "ragged", "--max-devices",
+           str(DIST_SHARDS), "--iters", "2"]
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    for line in proc.stdout.splitlines():
+        print("dist_bench", line)
+    check(proc.returncode == 0, f"dist_bench exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    res = json.loads([ln for ln in proc.stdout.splitlines()
+                      if ln.startswith("{")][-1])
+    check(len(res["devices"]) == 4 and all(
+        r["check"] == "pass" for r in res["devices"].values()),
+        f"dist_bench checks: {res['devices']}")
+    check(res["shards_share_devices"], "dist_bench did not report that the "
+          "shards share the card")
+    text = (proc.stdout + proc.stderr).lower()
+    check("jax" not in text and "mh_spgemm_tpu" not in text,
+          "dist_bench's output mentions JAX")
+    return res
+
+
 def build_phase(_build) -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
@@ -1223,6 +1510,7 @@ def main() -> int:
     from mh_spgemm_torch.ops import pair_matmul as pm
     from mh_spgemm_torch.ops import planned as pn
     from mh_spgemm_torch.ops import ragged_fill as rf
+    from mh_spgemm_torch.ops import remote_fetch as rfx
 
     # the plain versions and the library yardstick compute in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1249,6 +1537,7 @@ def main() -> int:
     serrs = slab_tail_phase(torch, et, dev)
     ferr = fill_kernel_phase(torch, rf, bk, dev)
     pnerrs = planned_kernel_phase(torch, pn, dev)
+    herr = halo_kernel_phase(torch, rfx, dev)
     perrs = pair_kernel_phase(torch, pm, tbd, bd_mats["pdb1HYS"], dev)
     done("kernels")
     states, refs, mats, launches = main_path_phase(torch, mt, et, rf, pn,
@@ -1279,19 +1568,27 @@ def main() -> int:
     del bd_states
     done("block-dense stages and pair-kernel timing")
     m_launches = masked_phase(torch, mt, rf, mats, refs, dev)
-    del mats, refs
     done("masked")
+    dist_rows, dist_launches, dist_states = dist_phase(
+        torch, mt, rfx, et, rf, mats, refs)
+    th = time_halo(torch, rfx, dist_states)
+    del mats, refs, dist_states
+    done("distributed and halo_exchange timing")
+    db = dist_bench_phase()
+    done("dist_bench")
     cli = cli_phase()
     done("cli")
     print("extraction " + json.dumps({
         name: {k: v for k, v in row.items() if k.startswith("extract")}
         for name, row in ext_ms.items()}))
     tail_by_phase = {"bucketed": launches["esc_tail"],
-                     "forced_fill": fill_launches["esc_tail"]}
+                     "forced_fill": fill_launches["esc_tail"],
+                     "distributed": dist_launches["esc_tail"]}
     fill_by_phase = {"bucketed": launches["ragged_fill"],
                      "forced_fill": fill_launches["ragged_fill"],
                      "blockdense": bd_launches["ragged_fill"],
-                     "masked": sum(m_launches.values())}
+                     "masked": sum(m_launches.values()),
+                     "distributed": dist_launches["ragged_fill"]}
     replaces = {"pair_matmul_f32": "mh_spgemm_tpu/ops/pallas_gather.py:108",
                 "pair_matmul_f64": "mh_spgemm_tpu/ops/ozaki.py:201",
                 "block_gather": "mh_spgemm_tpu/ops/pallas_gather.py:43"}
@@ -1352,8 +1649,23 @@ def main() -> int:
             "library_ms": pt[name]["library_ms"],
             "timed_on": "pwtk"}
             for name in ("pair_matmul_f32", "pair_matmul_f64",
-                         "block_gather")]}
+                         "block_gather")] + [{
+        "name": "halo_exchange", "route": "cuda",
+        "source": "mh_spgemm_torch/csrc/remote_fetch.cu",
+        "replaces": "mh_spgemm_tpu/ops/remote_fetch.py:67",
+        "launches": dist_launches["halo_exchange"], "max_abs_err": herr,
+        "ms": th["cage12"]["ms"], "plain_ms": th["cage12"]["plain_ms"],
+        "bound_ms": th["cage12"]["bound_ms"],
+        "bound_by": th["cage12"]["bound_by"],
+        "library_ms": th["cage12"]["library_ms"],
+        "timed_on": f"cage12 D={DIST_SHARDS} ragged exchange",
+        "timed_words": th["cage12"]["words"],
+        "launch_ms": th["cage12"]["launch_ms"],
+        "scircuit": {k: th["scircuit"][k] for k in
+                     ("ms", "launch_ms", "plain_ms", "bound_ms",
+                      "library_ms", "words")}}]}
     print(json.dumps({"cli_gflops": cli["gflops"],
+                      "dist_bench": db["devices"],
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps(kernels))
     print(smi)

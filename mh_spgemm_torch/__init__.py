@@ -20,6 +20,13 @@ tile bitmap, then the numeric stage.  Both engines' extraction copies
 long rows into the CSR arrays with ``ragged_fill`` where its cost model
 says so.
 
+``spgemm_dist`` runs the bucketed engine over a mesh of shards
+(``make_row_mesh``, ``make_grid_mesh``; shards may share a card): B
+replicated, gathered, fetched row by row as each shard's A block needs it
+(``ragged``, whose exchange under ``comm_backend="pallas"`` is the
+hand-written CUDA kernel ``csrc/remote_fetch.cu``), or block-partitioned
+over a 2-D grid.
+
 Computes in float64 (or float32) natively.  ``python -m mh_spgemm_torch``
 is the benchmark CLI.
 
@@ -34,6 +41,8 @@ from .csr import CSR, DeviceCSR
 from .errors import (DeviceError, MatrixFormatError, ShapeMismatchError,
                      SpGEMMError, VerificationError)
 from .io.mmio import extract_matrix_name, read_mtx, write_mtx
+from .parallel.mesh import make_grid_mesh, make_row_mesh
+from .parallel.spgemm_dist import spgemm_dist
 from .pipeline import (choose_engine, prepare_blockdense_state,
                        prepare_masked_state, spgemm_blockdense,
                        spgemm_bucketed, spgemm_chunked, spgemm_host,
@@ -47,6 +56,7 @@ __all__ = [
     "spgemm_bucketed", "spgemm_chunked", "spgemm_host",
     "spgemm_blockdense", "prepare_blockdense_state", "choose_engine",
     "spgemm_masked", "prepare_masked_state",
+    "spgemm_dist", "make_row_mesh", "make_grid_mesh",
     "oracle_spgemm", "timed_oracle_spgemm", "verify",
     "Timing", "gflops",
     "read_mtx", "write_mtx", "extract_matrix_name",

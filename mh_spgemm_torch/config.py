@@ -4,7 +4,9 @@
 config written for one package reads the same in the other.  The port
 runs the bucketed engine (precomputed-slot, planned, fill and gather
 frontends), the block-dense engine, ``mode="auto"`` choosing between
-them, and the class-based masked engine (``mode="masked"``);
+them, the class-based masked engine (``mode="masked"``), and the
+distributed layer's ``comm_backend`` ("xla" or "pallas", read by
+``spgemm_dist``);
 :func:`check_supported` resolves every setting to what the port can run
 and raises on settings whose kernels or engines are not ported yet,
 naming the ROADMAP item that ports them.  :func:`fill_mode` and
@@ -108,10 +110,8 @@ def check_supported(config: SpGEMMConfig) -> str:
                 "on the card)")
         if v not in ("auto", "off"):
             raise ValueError(f"unknown {name} setting {v!r}")
-    if config.comm_backend != "xla":
-        raise NotImplementedError(
-            f"comm_backend={config.comm_backend!r}: ROADMAP Queue 1 item 10 "
-            "(distributed layer, halo_exchange)")
+    if config.comm_backend not in ("xla", "pallas"):
+        raise ValueError(f"unknown comm_backend {config.comm_backend!r}")
     if config.esc_tail in ("auto", "on", "pow2"):
         return "kernel"
     if config.esc_tail == "off":

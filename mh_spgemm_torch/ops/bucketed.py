@@ -28,10 +28,15 @@ then runs one of three frontends, as the JAX planner decides:
   gathers B per slot.
 
 The plans are array-for-array those of the JAX planner with ``planar=True``
-and the grouped frontend off.  ``dma_fill`` arrives resolved by the
-pipeline: "auto" (the cost model; the pipeline passes it only for a state
-prepared for a CUDA device), "on" (forced on any device) or "off"; so
-does ``planned``: "on" or "off".
+and the grouped frontend off.  The distributed engines
+(``parallel/spgemm_dist.py``) plan each shard against another B layout
+(``b_starts`` / ``b_lens``) and force one class layout over the mesh
+(``forced``, :func:`plan_buckets_sharded`); their fill streams are built
+on the device after the collective (:func:`pairs_planar_device`).
+``dma_fill`` arrives resolved by the pipeline: "auto" (the cost model;
+the pipeline passes it only for a state prepared for a CUDA device),
+"on" (forced on any device) or "off"; so does ``planned``: "on" or
+"off".
 
 Device half (torch): per class, one frontend call and one tail call over
 all chunks at once (every step is row-local, so the chunks of a class
@@ -557,9 +562,13 @@ def needs_replan(plan: "BucketPlan") -> bool:
     return bool(tot) and esc / tot >= _REPLAN_SHARE
 
 
-def _entries_numpy(a_ptr, a_col, b_ptr, p_ent, rows_c, rb, W, nchunks):
-    """Per-entry descriptors of one class (the numpy twin of the native
-    builder): entries that reference an empty B row are dropped."""
+def _entries_numpy(a_ptr, a_col, b_starts, p_ent, rows_c, rb, W, nchunks,
+                   eb_forced=None):
+    """Per-entry descriptors of one class (the numpy twin of
+    ``native.bucket_entries``): entries that reference an empty B row are
+    dropped, and each entry's source is ``b_starts`` of its column.
+    ``eb_forced`` pins the entry capacity (a forced plan); otherwise it is
+    the quantized largest chunk's entry count."""
     a_row_nnz = np.diff(a_ptr)
     cnt = a_row_nnz[rows_c].astype(np.int64)
     local_row = np.repeat(np.arange(rows_c.size, dtype=np.int64), cnt)
@@ -579,7 +588,8 @@ def _entries_numpy(a_ptr, a_col, b_ptr, p_ent, rows_c, rb, W, nchunks):
     dst = (slot * W + off).astype(np.int64)
     ecnt = (np.bincount(chunk, minlength=nchunks).astype(np.int64)
             if chunk.size else np.zeros(nchunks, np.int64))
-    eb = quantize(int(ecnt.max())) if ecnt.size and ecnt.max() else 1
+    eb = eb_forced if eb_forced is not None else (
+        quantize(int(ecnt.max())) if ecnt.size and ecnt.max() else 1)
     shape = (nchunks, eb)
     ent_dst = np.full(shape, rb * W, dtype=np.int32)    # pad -> dropped
     ent_src = np.zeros(shape, dtype=np.int32)
@@ -589,38 +599,57 @@ def _entries_numpy(a_ptr, a_col, b_ptr, p_ent, rows_c, rb, W, nchunks):
         np.concatenate([[0], np.cumsum(ecnt)[:-1]]), ecnt)
     flat = chunk * eb + within
     ent_dst.ravel()[flat] = dst.astype(np.int32)
-    ent_src.ravel()[flat] = b_ptr[:-1][a_col[ent_e]].astype(np.int32)
+    ent_src.ravel()[flat] = b_starts[a_col[ent_e]].astype(np.int32)
     ent_len.ravel()[flat] = pe.astype(np.int32)
     ent_aidx.ravel()[flat] = ent_e.astype(np.int32)
     return eb, (ent_dst, ent_src, ent_len, ent_aidx)
 
 
-def plan_buckets(a_ptr: np.ndarray, a_col: np.ndarray, b_ptr: np.ndarray,
-                 min_width: int = 2, area_cap: int = 1 << 23,
-                 vwords: int = 2, dma_fill: str = "off",
-                 precompute: bool = True, planned: str = "off") -> BucketPlan:
+def plan_buckets(a_ptr: np.ndarray, a_col: np.ndarray,
+                 b_ptr: Optional[np.ndarray], min_width: int = 2,
+                 area_cap: int = 1 << 23, vwords: int = 2,
+                 dma_fill: str = "off", precompute: bool = True,
+                 planned: str = "off",
+                 b_starts: Optional[np.ndarray] = None,
+                 b_lens: Optional[np.ndarray] = None,
+                 forced: Optional[dict] = None) -> BucketPlan:
     """Bin rows into width classes, consolidate small classes, build
     per-chunk entry descriptors (native builder when the host library is
-    present, numpy otherwise), and pick each class's frontend.
+    present and B is a CSR, numpy otherwise), and pick each class's
+    frontend.
 
     ``vwords`` is the value width in i32 words (2 = f64, 1 = f32).
     ``dma_fill`` ("off", "auto", "on", resolved by the pipeline) lets
     classes with long B spans take the fill frontend: "auto" by the cost
     model, "on" always.  ``precompute`` gives the power-of-two width grid
     and precomputed slot arrays to every class that does not fill;
-    without it (the masked engine) the grid is ``_width_class`` from
-    ``min_width`` and such classes run the gather frontend.  ``planned``
-    ("on" or "off", resolved by the pipeline; it needs ``precompute``)
-    orders each class's rows by their first B source, caps non-fill
-    chunks at ``_PF_CHUNK_CAP`` slots, gives schedulable ``pre`` classes
-    the planned frontend (:func:`attach_planned`) and demotes the
-    long-span rest to the gather frontend.  Raises
-    :class:`SlabOverflowError` when the slab needs more than int32
-    indexing."""
+    without it (the masked engine, the distributed engines) the grid is
+    ``_width_class`` from ``min_width`` and such classes run the gather
+    frontend.  ``planned`` ("on" or "off", resolved by the pipeline; it
+    needs ``precompute``) orders each class's rows by their first B
+    source, caps non-fill chunks at ``_PF_CHUNK_CAP`` slots, gives
+    schedulable ``pre`` classes the planned frontend
+    (:func:`attach_planned`) and demotes the long-span rest to the gather
+    frontend.
+
+    ``b_starts`` / ``b_lens`` (int arrays over B's rows) replace the CSR
+    layout ``b_ptr[:-1]`` / ``diff(b_ptr)`` that the descriptors point
+    into: the distributed engines plan against gathered blocks or a halo
+    payload whose row starts are no prefix sum (``b_ptr`` may then be
+    None, without the planned frontend).  ``forced`` maps width -> (rb,
+    nchunks, eb, fill): those classes exist (rows or none) with those
+    shapes and that frontend, every row goes to the narrowest forced
+    width that holds it (``ValueError`` when none does), and no class is
+    consolidated, so the shards of a mesh share one class layout
+    (:func:`plan_buckets_sharded`).  Raises :class:`SlabOverflowError`
+    when the slab needs more than int32 indexing."""
     from ..utils import native as native_lib
 
     m = a_ptr.shape[0] - 1
-    b_lens = np.diff(b_ptr).astype(np.int64)
+    csr_layout = b_starts is None and b_lens is None
+    b_lens = (np.diff(b_ptr) if b_lens is None else b_lens).astype(np.int64)
+    if b_starts is None:
+        b_starts = b_ptr[:-1]
     p_ent = b_lens[a_col]                                   # per A-entry
     cs = np.concatenate([[0], np.cumsum(p_ent)])
     p_row = cs[a_ptr[1:]] - cs[a_ptr[:-1]]                  # per C row
@@ -628,7 +657,7 @@ def plan_buckets(a_ptr: np.ndarray, a_col: np.ndarray, b_ptr: np.ndarray,
 
     active = np.flatnonzero(p_row > 0).astype(np.int32)
     classes: List[ClassPlan] = []
-    if active.size == 0:
+    if active.size == 0 and not forced:
         m_cap = quantize(max(1, m))
         return BucketPlan(m=m, m_cap=m_cap, classes=classes,
                           intprod=intprod, dma_fill=dma_fill,
@@ -639,7 +668,6 @@ def plan_buckets(a_ptr: np.ndarray, a_col: np.ndarray, b_ptr: np.ndarray,
     vcs = np.concatenate([[0], np.cumsum(p_ent > 0)])
     row_vcnt = (vcs[a_ptr[1:]] - vcs[a_ptr[:-1]]).astype(np.int64)
     stride = 1 + vwords
-    b_starts = b_ptr[:-1]
     fill_force = dma_fill == "on"
     fill_ok = (dma_fill in ("auto", "on") and vwords in (1, 2)
                and int(b_starts.max() + b_lens.max()
@@ -648,76 +676,100 @@ def plan_buckets(a_ptr: np.ndarray, a_col: np.ndarray, b_ptr: np.ndarray,
     span = p * stride / np.maximum(1, row_vcnt[active])
 
     wclass = _width_class(p, min_width)
-    if precompute:
+    if precompute and p.size:
         # pow2 widths (the flat tail needs aligned pow2 segments); rows
         # with one product take the W = 1 direct path
         pw = 2 ** np.ceil(np.log2(np.maximum(1, p))).astype(np.int64)
         wclass = np.where(p == 1, 1, np.maximum(2, pw))
 
-    # class consolidation: merge a class into the next wider one while
-    # the padding cost stays under the fixed per-class cost
-    widths_u = sorted(int(w) for w in np.unique(wclass))
-    for i, w in enumerate(widths_u[:-1]):
-        if w == 1:
-            continue                    # keep the W = 1 direct class
-        sel = wclass == w
-        nxt = widths_u[i + 1]
-        if nxt > fill_slot_cap >= w:
-            continue                    # keep a fill-capable class in cap
-        fillish = (fill_ok and nxt <= fill_slot_cap
-                   and float(span[sel].mean()) >= _FILL_MIN_SPAN_WORDS)
-        slot_ns = 10.0 if fillish else _MERGE_SLOT_NS
-        if int(sel.sum()) * (nxt - w) * slot_ns < _CLASS_MERGE_NS:
-            wclass[sel] = nxt
+    if forced is not None and active.size:
+        # the union's widths may be sparser than this shard's own grid:
+        # each row goes up to the narrowest forced width that holds it
+        fw = np.array(sorted(forced), dtype=np.int64)
+        if not (wclass <= fw[-1]).all():
+            raise ValueError("forced spec narrower than shard rows")
+        wclass = fw[np.searchsorted(fw, wclass, side="left")]
+
+    if forced is None:
+        # class consolidation: merge a class into the next wider one
+        # while the padding cost stays under the fixed per-class cost
+        widths_u = sorted(int(w) for w in np.unique(wclass))
+        for i, w in enumerate(widths_u[:-1]):
+            if w == 1:
+                continue                # keep the W = 1 direct class
+            sel = wclass == w
+            nxt = widths_u[i + 1]
+            if nxt > fill_slot_cap >= w:
+                continue                # keep a fill-capable class in cap
+            fillish = (fill_ok and nxt <= fill_slot_cap
+                       and float(span[sel].mean()) >= _FILL_MIN_SPAN_WORDS)
+            slot_ns = 10.0 if fillish else _MERGE_SLOT_NS
+            if int(sel.sum()) * (nxt - w) * slot_ns < _CLASS_MERGE_NS:
+                wclass[sel] = nxt
 
     pf_on = precompute and planned != "off"
     groups = []
-    for W in sorted(set(wclass.tolist())):
+    widths = set(wclass.tolist()) | {int(w) for w in (forced or ())}
+    for W in sorted(widths):
         sel = wclass == W
         rows_c = active[sel]                            # original order
-        if pf_on:
+        if pf_on and rows_c.size:
             # rows by their first B source, so each chunk covers a
             # contiguous slice of the B table and its schedules stay dense
             fsrc = b_ptr[a_col[a_ptr[rows_c]]]
             rows_c = rows_c[np.argsort(fsrc, kind="stable")]
         cand = False
-        if fill_ok and W <= fill_slot_cap:
-            pc = int(p[sel].sum())
-            ec = int(row_vcnt[rows_c].sum())
-            cand = fill_force or (pc * stride / max(1, ec)
-                                  >= _FILL_MIN_SPAN_WORDS)
-        cap = fill_slot_cap if cand else area_cap
-        if pf_on and not cand:
-            cap = min(cap, _PF_CHUNK_CAP)     # bounds the network width
-        rb = max(1, min(cap // W, quantize(max(1, rows_c.size))))
-        groups.append((W, rows_c, rb, max(1, -(-rows_c.size // rb)), cand))
-    area = sum(W * rb * nchunks for W, _, rb, nchunks, _ in groups)
+        if forced is not None:
+            # the union pins the frontend, past the shard's cost model
+            cand = bool(forced[W][3]) and fill_ok and W <= fill_slot_cap
+            rb, nchunks, eb_f = forced[W][:3]
+        else:
+            if fill_ok and W <= fill_slot_cap:
+                pc = int(p[sel].sum())
+                ec = int(row_vcnt[rows_c].sum())
+                cand = fill_force or (pc * stride / max(1, ec)
+                                      >= _FILL_MIN_SPAN_WORDS)
+            cap = fill_slot_cap if cand else area_cap
+            if pf_on and not cand:
+                cap = min(cap, _PF_CHUNK_CAP)   # bounds the network width
+            rb = max(1, min(cap // W, quantize(max(1, rows_c.size))))
+            nchunks, eb_f = max(1, -(-rows_c.size // rb)), None
+        nchunks = max(nchunks, -(-max(1, rows_c.size) // rb))
+        groups.append((W, rows_c, rb, nchunks, cand, eb_f))
+    area = sum(g[0] * g[2] * g[3] for g in groups)
     if area >= 2**31 or intprod >= 2**31:       # before any slot array
         raise SlabOverflowError(
             f"bucketed slab area {area} / intprod {intprod} exceeds int32 "
             "indexing; split the matrix (spgemm_chunked)")
 
-    for W, rows_c, rb, nchunks, cand in groups:
+    for W, rows_c, rb, nchunks, cand, eb_f in groups:
         vc = row_vcnt[rows_c]
         ecnt_max = int(np.max(np.add.reduceat(
             np.concatenate([vc, np.zeros(nchunks * rb - vc.size,
                                          np.int64)]),
             np.arange(0, nchunks * rb, rb))))
+        # a forced rb may regroup rows into fuller chunks than the shard's
+        # own plan had: eb grows to fit (the sharded planner re-unions)
         eb = quantize(max(1, ecnt_max))
+        if eb_f is not None:
+            eb = max(eb_f, eb)
         rows_pad = np.full(nchunks * rb, -1, dtype=np.int32)
         rows_pad[: rows_c.size] = rows_c
-        ent = native_lib.bucket_entries(a_ptr, a_col, b_ptr, rows_c, rb,
-                                        int(W), eb, nchunks)
+        ent = (native_lib.bucket_entries(a_ptr, a_col, b_ptr, rows_c, rb,
+                                         int(W), eb, nchunks)
+               if csr_layout else None)
         if ent is None:
-            eb, ent = _entries_numpy(a_ptr, a_col, b_ptr, p_ent, rows_c,
-                                     rb, int(W), nchunks)
+            eb, ent = _entries_numpy(
+                a_ptr, a_col, b_starts, p_ent, rows_c, rb, int(W), nchunks,
+                eb_forced=eb if eb_f is not None else None)
         c = ClassPlan(W=int(W), rb=rb, nchunks=nchunks, eb=eb,
                       rows_g=rows_pad.reshape(nchunks, rb),
                       ent_dst=ent[0], ent_src=ent[1], ent_len=ent[2],
                       ent_aidx=ent[3], hold_passes=_log2_bound(W),
                       seg_passes=_log2_bound(W))
         if cand:
-            _attach_fill_plan(c, stride, force=fill_force)
+            _attach_fill_plan(c, stride,
+                              force=fill_force or eb_f is not None)
         if precompute and not c.fill:
             _attach_slot_arrays(c)
         classes.append(c)
@@ -741,6 +793,118 @@ def plan_buckets(a_ptr: np.ndarray, a_col: np.ndarray, b_ptr: np.ndarray,
     return BucketPlan(m=m, m_cap=m_cap, classes=classes, intprod=intprod,
                       slab_row_start=slab_row_start, dma_fill=dma_fill,
                       vwords=vwords)
+
+
+def class_spec(c: ClassPlan) -> tuple:
+    """The shape and frontend of a class: what the shards of a mesh must
+    share (the JAX ``ClassPlan.spec`` without its TPU-only fields)."""
+    return (c.W, c.rb, c.nchunks, c.eb, c.hold_passes, c.seg_passes,
+            c.fill, c.stride, c.wrows, c.out_rows, c.pre, c.pf, c.pf_spec)
+
+
+def plan_buckets_sharded(a_ptr: np.ndarray, a_col: np.ndarray,
+                         n_shards: int, rows_per_shard: int,
+                         b_ptr: Optional[np.ndarray] = None,
+                         min_width: int = 128, area_cap: int = 1 << 23,
+                         b_starts=None, b_lens=None,
+                         a_col_shards: Optional[List[np.ndarray]] = None,
+                         dma_fill: str = "off", vwords: int = 2,
+                         bounds: Optional[np.ndarray] = None,
+                         ) -> List[BucketPlan]:
+    """Per-shard bucket plans with one class layout, the port of the JAX
+    ``plan_buckets_sharded`` (``mh_spgemm_tpu/ops/bucketed.py:1623``).
+
+    Shard d owns rows ``[d*R, (d+1)*R)``, or ``[bounds[d], bounds[d+1])``,
+    or, for a 2-D ``bounds`` of (lo, hi) rows, ``bounds[d]`` (the grid's
+    virtual shards repeat row ranges).  Its A block is padded to R rows.
+    ``b_starts`` / ``b_lens`` are one array (replicated or gathered B) or
+    a list per shard (the halo payload); ``a_col_shards`` replaces each
+    shard's A columns (halo-remapped).  Each shard is planned free
+    (``precompute=False``, ``planned="off"``), then the class shapes and
+    frontends are unioned (max rb, nchunks and eb per width; a width
+    fills where any shard's plan fills it, its rb then clamped to the
+    fill budget) and every shard is replanned under the union until eb
+    stops growing (at most 4 rounds); the fill run plans are padded to
+    one step count.  The plans then share :func:`class_spec` class for
+    class."""
+    R = rows_per_shard
+    m = a_ptr.shape[0] - 1
+
+    def shard_csr(d):
+        if bounds is None:
+            lo, hi = min(d * R, m), min((d + 1) * R, m)
+        elif np.ndim(bounds) == 2:
+            lo, hi = int(bounds[d][0]), int(bounds[d][1])
+        else:
+            lo, hi = int(bounds[d]), int(bounds[d + 1])
+        ptr = (a_ptr[lo:hi + 1] - a_ptr[lo]).astype(a_ptr.dtype)
+        if hi <= lo:
+            ptr = np.zeros(1, a_ptr.dtype)
+        ptr = np.concatenate([ptr, np.full(R + 1 - ptr.size, ptr[-1],
+                                           ptr.dtype)])
+        if a_col_shards is not None:
+            col = a_col_shards[d]
+        elif hi > lo:
+            col = a_col[a_ptr[lo]: a_ptr[hi]]
+        else:
+            col = np.zeros(0, a_col.dtype)
+        return ptr, col
+
+    def pick(x, d):
+        return x[d] if isinstance(x, (list, tuple)) else x
+
+    def plan_all(forced):
+        out = []
+        for d in range(n_shards):
+            ptr, col = shard_csr(d)
+            out.append(plan_buckets(
+                ptr, col, b_ptr, min_width=min_width, area_cap=area_cap,
+                vwords=vwords, dma_fill=dma_fill, precompute=False,
+                planned="off", b_starts=pick(b_starts, d),
+                b_lens=pick(b_lens, d), forced=forced))
+        return out
+
+    plans = plan_all(None)
+    fill_rb_cap = max(1, _FILL_WORDS_CAP // (1 + vwords))
+    forced: dict = {}
+    for pl_ in plans:
+        for c in pl_.classes:
+            rb, nch, eb, fl = forced.get(c.W, (1, 1, 1, False))
+            fl = fl or c.fill
+            rb = max(rb, c.rb)
+            if fl:
+                # a fill class keeps the fill budget (a gather-only shard
+                # may have chosen a bigger chunk under the area budget)
+                rb = min(rb, max(1, fill_rb_cap // c.W))
+            forced[c.W] = (rb, max(nch, c.nchunks), max(eb, c.eb), fl)
+    for _ in range(4):
+        out = plan_all(forced)
+        new_forced = {
+            W: (forced[W][0],
+                max(pl_.classes[i].nchunks for pl_ in out),
+                max(pl_.classes[i].eb for pl_ in out),
+                forced[W][3])
+            for i, W in enumerate(sorted(forced))}
+        if new_forced == forced:
+            break
+        forced = new_forced
+    # one fill step count per class over the shards (zero steps copy
+    # nothing)
+    for i in range(len(out[0].classes)):
+        if not out[0].classes[i].fill:
+            continue
+        S = max(p.classes[i].win_row.shape[1] for p in out)
+        for p in out:
+            c = p.classes[i]
+            s0 = c.win_row.shape[1]
+            if s0 < S:
+                c.win_row = np.pad(c.win_row, ((0, 0), (0, S - s0),
+                                               (0, 0)))
+                c.runs = np.pad(c.runs, ((0, 0), (0, S - s0), (0, 0),
+                                         (0, 0)))
+    specs = {tuple(class_spec(c) for c in p.classes) for p in out}
+    assert len(specs) == 1, "sharded plans must share one class layout"
+    return out
 
 
 _CLASS_FIELDS = ("W", "rb", "nchunks", "eb", "rows_g", "ent_dst",
@@ -839,6 +1003,29 @@ def build_pairs_planar(b_col: np.ndarray, b_val: np.ndarray, vwords: int,
     out = np.zeros((len(planes) * pitch, 128), np.int32)
     flat = out.reshape(-1)
     for pidx, pl_ in enumerate(planes):
+        base = pidx * pitch * 128 + _FILL_BIAS_WORDS
+        flat[base: base + nnz] = pl_
+    return out
+
+
+def pairs_planar_device(b_col: torch.Tensor, b_val: torch.Tensor,
+                        vwords: int, wrows_max: int) -> torch.Tensor:
+    """:func:`build_pairs_planar` from tensors already on their device:
+    the distributed engines build a shard's fill stream after the
+    collective that brought its B payload (the port of the JAX
+    ``pairs_device``, ``mh_spgemm_tpu/ops/bucketed.py:1042``, in the
+    planar encoding; the value words are read in place).  Returns
+    i32[planes * pitch, 128] on ``b_col``'s device."""
+    nnz = b_col.shape[0]
+    words = _words(b_val)
+    if len(words) != vwords:
+        raise ValueError(f"{vwords} value words planned, {len(words)} "
+                         "given")
+    pitch = pairs_plane_pitch(nnz, wrows_max)
+    out = torch.zeros(((1 + vwords) * pitch, 128), dtype=torch.int32,
+                      device=b_col.device)
+    flat = out.view(-1)
+    for pidx, pl_ in enumerate([b_col.to(torch.int32)] + words):
         base = pidx * pitch * 128 + _FILL_BIAS_WORDS
         flat[base: base + nnz] = pl_
     return out

@@ -1,9 +1,10 @@
 """CUDA-only tests of the PyTorch port: each kernel (esc_tail_flat and its
 slab form esc_tail, ragged_fill, the two pair matmuls, block_gather,
-pgather and proute) against its plain PyTorch version on the card, and
-the bucketed (with and without the fill frontend, planned and not),
-block-dense (with the windowed extraction) and masked engines on the card
-against the scipy oracle.  They skip where there is no CUDA device.
+pgather, proute and halo_exchange) against its plain PyTorch version on
+the card, and the bucketed (with and without the fill frontend, planned
+and not), block-dense (with the windowed extraction), masked and
+distributed engines on the card against the scipy oracle.  They skip
+where there is no CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine with only torch: ``python -m pytest --noconftest
@@ -21,6 +22,9 @@ from mh_spgemm_torch.ops import esc_tail as et
 from mh_spgemm_torch.ops import pair_matmul as pm
 from mh_spgemm_torch.ops import planned as pn
 from mh_spgemm_torch.ops import ragged_fill as rf
+from mh_spgemm_torch.ops import remote_fetch as rfx
+from mh_spgemm_torch.parallel.mesh import make_row_mesh
+from mh_spgemm_torch.parallel.spgemm_dist import spgemm_dist
 from mh_spgemm_torch.pipeline import (spgemm_blockdense, spgemm_bucketed,
                                       spgemm_masked)
 
@@ -338,3 +342,46 @@ def test_planned_engine_on_card(cuda, value_dtype):
     assert any(c.pf for c in state.plan.classes)
     assert state.plan.ext is not None or state.plan.ext_pf is not None
     assert pn.pgather.launches > before[0] and pn.proute.launches > before[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vr", [1, 336])
+@pytest.mark.parametrize("d", [1, 2, 8])
+def test_halo_exchange_matches_plain(cuda, d, vr):
+    """One launch moves every shard's blocks (shards in separate
+    allocations on the card), exact on every word."""
+    rng = np.random.default_rng(d * 1000 + vr)
+    sends = [torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (d, vr, 128),
+                                           dtype=np.int64).astype(np.int32)
+                              ).to(cuda) for _ in range(d)]
+    before = rfx.halo_exchange.launches
+    got = rfx.halo_exchange(sends, n_devices=d)
+    torch.cuda.synchronize()
+    assert rfx.halo_exchange.launches == before + 1
+    for g, w in zip(got, rfx.halo_exchange_plain(sends, n_devices=d)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("value_dtype", ["float64", "float32"])
+def test_dist_ragged_pallas_on_card(cuda, value_dtype):
+    """spgemm_dist's ragged strategy on 4 shards of the card under
+    comm_backend="pallas" (the halo_exchange kernel), cold and warm,
+    against the oracle, and bit for bit against "xla"."""
+    A = gen.powerlaw(3000, avg_nnz=5, seed=42)
+    ref = oracle_spgemm(A, A)
+    tol = 1e-9 if value_dtype == "float64" else 1e-4
+    mesh = make_row_mesh(4)
+    assert all(d.type == "cuda" for d in mesh.devices)
+    before = (rfx.halo_exchange.launches, et.esc_tail.launches)
+    st = {}
+    for _ in range(3):                        # cold, then warm
+        C = spgemm_dist(A, None, mesh, b_strategy="ragged", state=st,
+                        config=SpGEMMConfig(value_dtype=value_dtype,
+                                            comm_backend="pallas"))
+        assert C.equals(ref, tol=tol)
+    assert rfx.halo_exchange.launches == before[0] + 3
+    assert et.esc_tail.launches > before[1]
+    X = spgemm_dist(A, None, mesh, b_strategy="ragged",
+                    config=SpGEMMConfig(value_dtype=value_dtype))
+    assert np.array_equal(X.col, C.col) and np.array_equal(X.val, C.val)

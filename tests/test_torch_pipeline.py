@@ -11,8 +11,9 @@ Tolerances: ptr and col exact; values within ``CSR.equals`` tol 1e-9
 in f64; 1e-4 in f32, where the two tails sum in different orders.
 
 Also here: every setting the port does not run yet raises and names its
-ROADMAP item (settings ported since, ``mode="masked"``, ``dma_fill="on"``
-and ``planned="on"``, run and give the oracle's C; the Pallas
+ROADMAP item (settings ported since, ``mode="masked"``, ``dma_fill="on"``,
+``planned="on"`` and ``comm_backend="pallas"``, run and give the oracle's
+C, and an unknown ``comm_backend`` raises ``ValueError``; the Pallas
 interpreter's "interpret" raises), the modes and ``ozaki`` settings it
 does run route as configured, and ``esc_tail="off"`` routes every class
 through the sort tail.
@@ -153,7 +154,8 @@ def test_default_device_needs_cuda():
     ("df32", "on", "ground rules"),
     ("wide_gather", "on", "ground rules"),
     ("group_gather", "on", "ground rules"),
-    ("comm_backend", "pallas", "Queue 1 item 10"),
+    pytest.param("comm_backend", "pallas", None,
+                 id="comm_backend-pallas-Queue 1 item 10"),
 ])
 def test_unported_settings_raise(field, value, item):
     cfg = SpGEMMConfig(**{field: value})
@@ -170,6 +172,17 @@ def test_unported_settings_raise(field, value, item):
         with pytest.raises(NotImplementedError, match=match) as exc:
             call()
         assert item in str(exc.value)
+
+
+def test_unknown_comm_backend_raises():
+    """``comm_backend`` takes "xla" and "pallas" (the distributed layer's
+    exchanges); anything else is refused."""
+    cfg = SpGEMMConfig(comm_backend="nccl")
+    A = gen.tiny_fixture()
+    for call in (lambda: spgemm_host(A, config=cfg, device="cpu"),
+                 lambda: spgemm_bucketed(A, A, config=cfg, device="cpu")):
+        with pytest.raises(ValueError, match="comm_backend"):
+            call()
 
 
 @pytest.mark.parametrize("mode", ["auto", "blockdense", "bucketed"])
