@@ -7,8 +7,9 @@
 2. Builds the five CUDA sources (``mh_spgemm_torch/csrc/esc_tail.cu``,
    ``pair_matmul.cu``, ``ragged_fill.cu``, ``planned.cu`` and
    ``remote_fetch.cu``) with nvcc for sm_90a into ``build/``, one nvcc per
-   source, started together; prints the build times and the registers and
-   spills ptxas reports.
+   source, started together; prints the build times and, for each
+   kernel, the registers, static shared memory, stack and spills ptxas
+   reports (also in each kernel's ``ptxas`` entry of the kernels line).
 3. Kernel phase: ``esc_tail_flat`` against its plain PyTorch version on
    the card for w2 in {2, 8, 256, 2048, 8192, 32768, 65536}, f64 and
    f32, on duplicate-heavy, empty and all-same-key segments (keys and
@@ -24,11 +25,13 @@
    and a zero-length run, compared exactly on the words the runs cover;
    ``pgather`` against its plain version on every output word and
    against ``tab[src[perm]]`` from the host schedule, for 1, 2 and 3
-   planes (one read in place with a word stride of 2); ``proute`` against
-   its plain version on every word at m in {1024, 32768, 131072} with
-   hold widths {1, 8, 2048, 32768} (up to m), on planned routes and on
-   random mask bits, and without the hold against ``out[dest] = in``
-   (all exact);
+   planes read in place with a word stride of 2, planes 0-1 or 1-2 the
+   two words of one f64 array (the 8-byte load) and no such pair;
+   ``proute`` against its plain version on every word for 1, 2 and 3
+   planes at the main path's widths and holds (``PROUTE_CASES``: m from
+   1024 to 131072, holds 1 to 32768, among them m = 16384 with 2048 and
+   m = 65536 with 64 and 1024), on planned routes and on random mask
+   bits, and without the hold against ``out[dest] = in`` (all exact);
    ``pair_matmul_f64`` and ``pair_matmul_f32`` against their plain
    versions on a synthetic stream (segments of 1 to 64 pairs, dead
    pairs, C blocks with no pair) and on pdb1HYS's own pair stream (f64
@@ -60,7 +63,9 @@
    Then the planned-versus-off phase: on each stand-in, cold calls (host
    wall clock, planning included) and warm calls (CUDA events) under the
    default config and under ``planned="off"``, in turns (default, off,
-   off, default), every C against the oracle.
+   off, default), every C against the oracle; then one warm call of each
+   under ``torch.profiler``: its kernels by name, their device time and
+   the card's idle share against the faster warm time.
 5. Forced-fill phase on cage12 (``dma_fill="on"``): its W=256 class must
    run the fill frontend, C must equal the oracle, and the
    ``ragged_fill`` and ``esc_tail`` launch counts, set to 0 before, must
@@ -106,7 +111,12 @@
    ``index_select`` over the same word indices), ``pgather`` and
    ``proute`` at scircuit's widest planned class (its B route) and at its
    planned extraction's shapes (one ``index_select`` over the same word
-   indices; one ``index_copy_`` by the host-simulated destinations), and
+   indices; one ``index_copy_`` by the host-simulated destinations), each
+   as a wrapper call, as its C entry alone and by device time
+   (``torch.profiler``, after a discarded warm-up step, every launch of
+   every timed call recorded), ``pgather`` also with its 8-byte f64 load
+   off and by host time, ``proute`` also with the hold at scircuit's
+   widest A route (m = 16384, hold 2048), and
    the pair matmuls and ``block_gather`` at pwtk's shapes (``torch.bmm``
    of the pre-gathered pairs, ``torch.index_select``).
 10. CLI phase: ``python -m mh_spgemm_torch pdb1HYS --check --stats --json
@@ -128,6 +138,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -169,6 +180,12 @@ DIST_CALLS = (
     ("cage12", "ragged", "pallas", "auto", False),
     ("cage12", "ragged", "pallas", "on", False),
 )
+# proute's checks: (m, hold widths); the main path's networks run m from
+# 1024 to 131072, scircuit's A routes m_a = 16384 with hold 2048 and
+# 65536 with holds 64 and 1024
+PROUTE_CASES = ((1024, (1, 8)), (16384, (1, 2048)),
+                (32768, (1, 8, 2048, 32768)), (65536, (1, 64, 1024)),
+                (131072, (1, 8, 2048, 32768)))
 I32_MAX = 2**31 - 1
 BS = 128
 
@@ -370,33 +387,41 @@ def fill_kernel_phase(torch, rf, bk, dev) -> int:
 def planned_kernel_phase(torch, pn, dev) -> dict:
     """pgather and proute against their plain versions on every output
     word, and against the host's truth: the table read at each scheduled
-    source, and out[dest] = in.  All exact.  Returns the max abs errors
-    (0 when the run gets here)."""
+    source, and out[dest] = in.  All exact.  pgather runs with planes 0-1
+    and with planes 1-2 the two words of one f64 array (the 8-byte load)
+    and with no such pair; proute at the main path's widths and holds
+    (PROUTE_CASES), 1 to 3 planes, on planned routes and random mask bits.
+    Returns the max abs errors (0 when the run gets here)."""
     rng = np.random.default_rng(4)
-    for nplanes in (1, 2, 3):
-        for S, T in ((30000, 2000), (100000, 600000)):
-            src = rng.integers(0, T, S).astype(np.int64)
-            wblk, rowsel, lane, perm = pn.plan_pgather(src, T)
-            sched = [torch.from_numpy(x).to(dev) for x in (wblk, rowsel, lane)]
-            words = torch.from_numpy(rng.integers(
-                -2**31, 2**31 - 1, (T, 2), dtype=np.int64).astype(
-                    np.int32)).to(dev)
-            tabs = [words[:, 0], words[:, 1],
-                    words[:, 0].contiguous() ^ 5][:nplanes]
+    for S, T in ((30000, 2000), (100000, 600000)):
+        src = rng.integers(0, T, S).astype(np.int64)
+        wblk, rowsel, lane, perm = pn.plan_pgather(src, T)
+        sched = [torch.from_numpy(x).to(dev) for x in (wblk, rowsel, lane)]
+        words = torch.from_numpy(rng.integers(
+            -2**31, 2**31 - 1, (T, 2), dtype=np.int64).astype(
+                np.int32)).to(dev)
+        w0, w1, other = words[:, 0], words[:, 1], words[:, 0].contiguous() ^ 5
+        live = np.flatnonzero(perm >= 0)
+        at = torch.from_numpy(src[perm[live]]).to(dev)
+        lv = torch.from_numpy(live).to(dev)
+        for label, tabs, pair in (
+                ("1 plane", [w0], -1), ("pair 0-1", [w0, w1], 0),
+                ("pair 0-1 of 3", [w0, w1, other], 0),
+                ("pair 1-2", [other, w0, w1], 1),
+                ("no pair", [w1, w0, other], -1)):
+            check(pn._f64_pair(tabs) == pair,
+                  f"pgather planes {label}: pair {pn._f64_pair(tabs)}")
             out = pn.pgather(tabs, *sched)
             torch.cuda.synchronize()
             check(torch.equal(out, pn.pgather_plain(tabs, *sched)),
                   f"pgather differs from its plain version ({S}, {T}, "
-                  f"{nplanes} planes)")
-            live = np.flatnonzero(perm >= 0)
-            at = torch.from_numpy(src[perm[live]]).to(dev)
-            lv = torch.from_numpy(live).to(dev)
+                  f"{label})")
             check(all(torch.equal(out[p][lv], t[at])
                       for p, t in enumerate(tabs)),
                   "pgather differs from the table at its sources")
-            print(f"kernel pgather planes={nplanes} sources={S} table={T} "
+            print(f"kernel pgather {label} sources={S} table={T} "
                   f"blocks={wblk.size} exact ok", flush=True)
-    for m in (1024, 32768, 131072):
+    for m, holds in PROUTE_CASES:
         nb = 3
         dest = np.stack([rng.permutation(m) for _ in range(nb)])
         srcs = rng.integers(0, 4 * m, (nb, m // 4))
@@ -413,14 +438,15 @@ def planned_kernel_phase(torch, pn, dev) -> dict:
             -2**31, 2**31 - 1, masks.shape, dtype=np.int64).astype(
                 np.int32)).to(dev)
         d = torch.from_numpy(dest).to(dev)
-        for nplanes in (2, 3):
+        for nplanes in (1, 2, 3):
             x = torch.from_numpy(rng.integers(
                 -2**31, 2**31 - 1, (nplanes, nb, m), dtype=np.int64).astype(
                     np.int32)).to(dev)
             fl = torch.from_numpy((rng.random((nb, m)) < 0.1).astype(
                 np.int32)).to(dev)
             fl[:, ::8] = 1
-            for hold in (h for h in (1, 8, 2048, 32768) if h <= m):
+            fl[0, : m // 2] = 0      # long unflagged runs, whole segments
+            for hold in holds:
                 for masks_ in (mk, rand):
                     out = pn.proute(x, masks_, nst, hold_w2=hold, flags=fl)
                     torch.cuda.synchronize()
@@ -563,6 +589,17 @@ def planned_vs_off_phase(torch, mt, mats: dict, refs: dict, states: dict,
                   f"{name} ({which}): warm != oracle")
             del out
         off_states[name] = st["off"]
+        for which in ("default", "off"):    # where a warm call's time goes
+            prof = device_profile(torch, lambda: spgemm_bucketed(
+                A, A, config=cfgs[which], state=st[which]), reps=3,
+                whole=False)
+            wm = min(warm[which])
+            top = dict(list(prof["by_name"].items())[:8])
+            print("warm_profile " + json.dumps({
+                "matrix": name, "config": which, "warm_ms": wm,
+                "busy_ms": prof["busy_ms"], "kernels": prof["kernels"],
+                "idle_share": 1.0 - prof["busy_ms"] / wm, "top": top,
+                "partial": prof["partial"]}), flush=True)
         row = {"matrix": name, "warm_ms": warm, "cold_ms": cold,
                "frontends": {k: [(c.W, c.frontend) for c in v.plan.classes]
                              for k, v in st.items()},
@@ -748,9 +785,43 @@ def time_pgather(torch, pn, tabs, sched, label: str) -> dict:
     the stacked planes by the same word indices, and its bound: each
     lane and rowsel word and each wblk entry read once, each table word
     the schedule names read once per plane, each output word written
-    once."""
+    once.  ``ms`` is a wrapper call; ``launch_ms`` the C entry alone on
+    prebuilt arguments (no checks, no allocation); ``host_us`` the host
+    time of each (the wall clock of 200 back-to-back calls, none of which
+    waits for the card).  Where two planes are one f64 array's words, the
+    C entry also runs with the 8-byte load off (``apart``), on the same
+    planes."""
     wblk, rowsel, lane = sched
-    ms = cuda_ms(lambda: pn.pgather(tabs, *sched), 20)
+    ms = cuda_ms(lambda: pn.pgather(tabs, *sched), 100)
+    out = pn.pgather(tabs, *sched)
+    lib = pn._lib()
+    P = len(tabs)
+    pair = pn._f64_pair(tabs)
+    args = []
+    for t in list(tabs) + [tabs[0]] * (3 - P):
+        args += [t.data_ptr(), t.stride(0), t.numel()]
+    tail = [wblk.data_ptr(), rowsel.data_ptr(), lane.data_ptr(),
+            wblk.numel(), out.data_ptr(), out[0].numel(),
+            torch.cuda.current_stream().cuda_stream]
+    runs = {"pair": args + [P, pair] + tail}
+    if pair >= 0:
+        runs["apart"] = args + [P, -1] + tail
+    launch_ms, device_ms = {}, {}
+    for key, a in runs.items():
+        launch_ms[key] = cuda_ms(lambda: lib.pgather(*a), 100)
+        check(torch.equal(out, pn.pgather(tabs, *sched)),
+              f"pgather's launch alone ({key}) differs on {label}")
+        device_ms[key] = device_profile(
+            torch, lambda: lib.pgather(*a))["busy_ms"]
+    host_us = {}
+    for key, fn in (("call", lambda: pn.pgather(tabs, *sched)),
+                    ("launch", lambda: lib.pgather(*runs["pair"]))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        host_us[key] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
     plain_ms = cuda_ms(lambda: pn.pgather_plain(tabs, *sched), 5)
     idx = schedule_words(torch, wblk, rowsel, lane)
     n = tabs[0].numel()
@@ -759,43 +830,88 @@ def time_pgather(torch, pn, tabs, sched, label: str) -> dict:
     check(torch.equal(pn.pgather(tabs, *sched).reshape(len(tabs), -1),
                       torch.index_select(stacked, 1, idx)),
           f"pgather differs from index_select on {label}")
-    lib_ms = cuda_ms(lambda: torch.index_select(stacked, 1, idx), 20)
-    P, pos = len(tabs), idx.numel()
+    lib_ms = cuda_ms(lambda: torch.index_select(stacked, 1, idx), 100)
+    pos = idx.numel()
     distinct = int(torch.unique(idx).numel())
     nbytes = pos * 8 + wblk.numel() * 4 + distinct * 4 * P + pos * 4 * P
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"timing pgather on {label} ({P} planes, {wblk.numel()} blocks, "
-          f"{pos} positions, {distinct} distinct words): {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({nbytes} B)", flush=True)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "positions": pos}
+    apart = (f"; 8-byte load off: the launch alone {launch_ms['apart']:.4f}"
+             f" ms, device time {device_ms['apart']:.4f} ms"
+             if pair >= 0 else "")
+    print(f"timing pgather on {label} ({P} planes, f64 pair {pair}, "
+          f"{wblk.numel()} blocks, {pos} positions, {distinct} distinct "
+          f"words): {ms:.4f} ms (the launch alone {launch_ms['pair']:.4f} "
+          f"ms, device time {device_ms['pair']:.4f} ms{apart}), host "
+          f"{host_us['call']:.2f} us a call, {host_us['launch']:.2f} us a "
+          f"launch alone, plain {plain_ms:.4f} ms, index_select "
+          f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B)",
+          flush=True)
+    return {"ms": ms, "launch_ms": launch_ms["pair"],
+            "device_ms": device_ms["pair"],
+            "apart_launch_ms": launch_ms.get("apart"),
+            "apart_device_ms": device_ms.get("apart"),
+            "host_us": host_us, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "positions": pos}
 
 
-def time_proute(torch, pn, x, masks, nst, dest, label: str) -> dict:
-    """proute (no hold) beside its plain version, one index_copy_ by the
-    host-simulated destinations, and its bound: the mask words read
-    once, each plane read and written once."""
-    ms = cuda_ms(lambda: pn.proute(x, masks, nst), 20)
-    plain_ms = cuda_ms(lambda: pn.proute_plain(x, masks, nst), 3, warmup=1)
+def time_proute(torch, pn, x, masks, nst, dest, label: str, hold: int = 1,
+                flags=None) -> dict:
+    """proute beside its plain version and its bound: the mask words read
+    once, each plane read and written once, the flags read once.  Without
+    the hold also one index_copy_ by the host-simulated destinations
+    (``dest``), which must agree with it; with the hold there is no one
+    PyTorch call for the function (library_ms None).  ``ms`` is a wrapper
+    call; ``launch_ms`` the C entry alone on prebuilt arguments."""
+    kw = {"hold_w2": hold, "flags": flags} if hold > 1 else {}
+    ms = cuda_ms(lambda: pn.proute(x, masks, nst, **kw), 100)
+    lib = pn._lib()
     P, nb, m = x.shape
-    flat_dest = (dest + torch.arange(nb, device=x.device)[:, None] * m
-                 ).reshape(-1)
-    flat_x = x.reshape(P, -1)
-    out = torch.empty_like(flat_x)
-    out.index_copy_(1, flat_dest, flat_x)
-    check(torch.equal(pn.proute(x, masks, nst).reshape(P, -1), out),
-          f"proute differs from index_copy_ on {label}")
-    lib_ms = cuda_ms(lambda: out.index_copy_(1, flat_dest, flat_x), 20)
-    nbytes = masks.numel() * 4 + 2 * x.numel() * 4
+    out = torch.empty_like(x)
+    scratch = torch.empty(lib.proute_scratch_words(P, nb, m, hold),
+                          dtype=torch.int32, device=x.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    fptr = flags.data_ptr() if hold > 1 else None
+    launch_ms = cuda_ms(lambda: lib.proute(
+        x.data_ptr(), nb * m, out.data_ptr(), scratch.data_ptr(), nb * m, P,
+        masks.data_ptr(), fptr, nb, m, nst, hold, stream), 100)
+    check(torch.equal(out, pn.proute(x, masks, nst, **kw)),
+          f"proute's launch alone differs from a call on {label}")
+    prof = device_profile(torch, lambda: lib.proute(
+        x.data_ptr(), nb * m, out.data_ptr(), scratch.data_ptr(), nb * m, P,
+        masks.data_ptr(), fptr, nb, m, nst, hold, stream))
+    device_ms = prof["busy_ms"]
+    tile = 1 << lib.proute_tile_log(m.bit_length() - 1, nb * m)
+    plain_ms = cuda_ms(lambda: pn.proute_plain(x, masks, nst, **kw), 3,
+                       warmup=1)
+    check(torch.equal(out, pn.proute_plain(x, masks, nst, **kw)),
+          f"proute differs from its plain version on {label}")
+    lib_ms = None
+    if hold == 1:
+        flat_dest = (dest + torch.arange(nb, device=x.device)[:, None] * m
+                     ).reshape(-1)
+        flat_x = x.reshape(P, -1)
+        ref = torch.empty_like(flat_x)
+        ref.index_copy_(1, flat_dest, flat_x)
+        check(torch.equal(out.reshape(P, -1), ref),
+              f"proute differs from index_copy_ on {label}")
+        lib_ms = cuda_ms(lambda: ref.index_copy_(1, flat_dest, flat_x), 100)
+    nbytes = (masks.numel() * 4 + 2 * x.numel() * 4
+              + (flags.numel() * 4 if hold > 1 else 0))
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    lib_txt = f"index_copy_ {lib_ms:.4f} ms" if lib_ms is not None else \
+        "no library call"
     print(f"timing proute on {label} ({P} planes, {nb} networks of {m}, "
-          f"{nst} stages): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"index_copy_ {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({nbytes} B)", flush=True)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "m": m,
-            "networks": nb}
+          f"{nst} stages, hold {hold}, tile {tile}): {ms:.4f} ms (the "
+          f"launch alone {launch_ms:.4f} ms, device time {device_ms:.4f} "
+          f"ms), plain {plain_ms:.4f} ms, {lib_txt}, bound {bound_ms:.4f} "
+          f"ms ({nbytes} B); kernels "
+          + json.dumps({k: [v["launches"], round(v["ms"], 5)]
+                        for k, v in prof["by_name"].items()}), flush=True)
+    return {"ms": ms, "launch_ms": launch_ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "m": m, "networks": nb, "hold": hold,
+            "tile": tile}
 
 
 def time_planned(torch, pn, bk, state) -> dict:
@@ -824,6 +940,16 @@ def time_planned(torch, pn, bk, state) -> dict:
     g = pn.pgather(tabs, *sched)
     res["route"] = time_proute(torch, pn, g, d["bt_masks"], nst_b, dest,
                                label)
+    # the hold: the A route of the widest planned class that has one
+    ia = max((j for j, c_ in enumerate(plan.classes)
+              if c_.pf and c_.pf_spec[4]), key=lambda j: plan.classes[j].W)
+    ca, da = plan.classes[ia], plan.dev[ia]
+    ga = pn.pgather(bk._words(state.a_val), da["ag_wblk"], da["ag_rowsel"],
+                    da["ag_lane"])
+    res["hold"] = time_proute(
+        torch, pn, ga, da["at_masks"], ca.pf_spec[3], None,
+        f"{PLANNED_TIMING}'s W={ca.W} A route ({ca.nchunks} chunks, "
+        f"m={ca.pf_spec[2]})", hold=ca.W, flags=da["flags"])
     if plan.ext_pf is not None:
         slabs = bk.bucketed_main(plan, state.a_val, state.b_col,
                                  state.b_val, state.pairs, route=state.route)
@@ -986,31 +1112,80 @@ def dist_classes(st) -> list:
             for g in groups]
 
 
+def kernel_name(event_name: str) -> str:
+    """A device event's kernel name without its return type, namespace
+    and parameter list: ``void (anonymous namespace)::gather_blocks<3,
+    1>(...)`` reads ``gather_blocks<3, 1>``."""
+    name = event_name.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[len("void "):]
+    return name.split("(")[0].strip()
+
+
+def device_profile(torch, fn, reps: int = 5, whole: bool = True) -> dict:
+    """``reps`` calls of ``fn`` under ``torch.profiler``, after a warm-up
+    step of as many calls that the profiler discards (it misses launches
+    while its device tracing starts): the CUDA kernels they launched, by
+    name, with their summed device time, per call.  Raises where the
+    profiler records no device time, or, with ``whole``, a kernel a
+    number of times that is not a multiple of ``reps`` (a call whose
+    launches were not all recorded); without it, ``partial`` names such
+    kernels.  The profiler now and then records nothing or part of a
+    step, so a record with no device time or a partial count is taken
+    again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        by_name = {}
+        for e in prof.events():
+            if (not str(getattr(e, "device_type", "")).endswith("CUDA")
+                    or e.name.startswith("ProfilerStep")):  # the step's span
+                continue
+            us = (getattr(e, "device_time", None)
+                  or getattr(e, "cuda_time", 0.0))
+            name = kernel_name(e.name)
+            n, t = by_name.get(name, (0, 0.0))
+            by_name[name] = (n + 1, t + us)
+        busy_us = sum(t for _, t in by_name.values())
+        partial = {k: n for k, (n, _) in by_name.items() if n % reps}
+        if busy_us > 0 and not partial:
+            break
+        print(f"device_profile: record {attempt + 1} incomplete "
+              f"({busy_us:.1f} us, partial {partial}), taken again",
+              flush=True)
+    check(busy_us > 0, "the profiler recorded no device time")
+    check(not (whole and partial),
+          f"the profiler recorded part of a call's launches over {reps} "
+          f"calls: {partial}")
+    return {"busy_ms": busy_us / 1e3 / reps, "partial": partial,
+            "kernels": sum(n for n, _ in by_name.values()) / reps,
+            "by_name": {k: {"launches": n / reps, "ms": t / 1e3 / reps}
+                        for k, (n, t) in sorted(by_name.items(),
+                                                key=lambda kv: -kv[1][1])}}
+
+
 def profile_program(torch, st, program_ms: float, label: str) -> dict:
     """One run of a distributed state's shard program under
-    ``torch.profiler``: the CUDA kernels it launched and their summed
-    device time, and the device's idle share against ``program_ms`` (the
-    program's CUDA-event time without the profiler).  Where the profiler
-    fails or records no device time (no CUPTI tracing), the row says "not
-    measured"."""
-    from torch.profiler import ProfilerActivity, profile
+    ``torch.profiler`` (:func:`device_profile`): the CUDA kernels it
+    launched and their summed device time, and the device's idle share
+    against ``program_ms`` (the program's CUDA-event time without the
+    profiler).  Where the profiler fails or records no device time (no
+    CUPTI tracing), the row says "not measured"."""
     row = {"label": label, "program_ms": program_ms}
     try:
-        st["fn"](*st["args"])
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            st["fn"](*st["args"])
-            torch.cuda.synchronize()
-        kern = [e for e in prof.events()
-                if str(getattr(e, "device_type", "")).endswith("CUDA")]
-        busy_us = sum(getattr(e, "device_time", None)
-                      or getattr(e, "cuda_time", 0.0) for e in kern)
-        if not kern or busy_us <= 0:
-            row["profile"] = "not measured (no device events)"
-        else:
-            row.update(kernels=len(kern), busy_ms=busy_us / 1e3,
-                       idle_share=1.0 - busy_us / 1e3 / program_ms)
+        prof = device_profile(torch, lambda: st["fn"](*st["args"]), reps=1)
+        row.update(kernels=prof["kernels"], busy_ms=prof["busy_ms"],
+                   idle_share=1.0 - prof["busy_ms"] / program_ms)
     except Exception as exc:            # the measurement only, not a check
         row["profile"] = f"not measured ({type(exc).__name__}: {exc})"
     print("dist_profile " + json.dumps(row), flush=True)
@@ -1182,19 +1357,51 @@ def dist_bench_phase() -> dict:
     return res
 
 
-def build_phase(_build) -> None:
-    """One nvcc per source, all started together."""
+def ptxas_kernels(log: str) -> list:
+    """Each kernel of one build's ``-Xptxas -v`` output: its mangled name
+    (which holds the plain name and the template arguments, as in
+    ``_ZN..13gather_blocksILi3ELi1EEEv..``), registers, static shared
+    memory, stack frame and spill bytes."""
+    out, cur = [], None
+    for line in log.splitlines():
+        hit = re.search(r"Compiling entry function '(\w+)'", line)
+        if hit:
+            cur = {"kernel": hit.group(1),
+                   "registers": None, "smem_bytes": 0, "stack_bytes": 0,
+                   "spill_bytes": 0}
+            out.append(cur)
+        elif cur is not None:
+            hit = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads", line)
+            if hit:
+                cur["stack_bytes"] = int(hit.group(1))
+                cur["spill_bytes"] = int(hit.group(2)) + int(hit.group(3))
+            hit = re.search(r"Used (\d+) registers", line)
+            if hit:
+                cur["registers"] = int(hit.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def build_phase(_build) -> dict:
+    """One nvcc per source, all started together.  Returns each source's
+    kernels as ptxas reports them (:func:`ptxas_kernels`)."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as ex:
         list(ex.map(_build.build, SOURCES))
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(SOURCES)} "
           "sources in parallel", flush=True)
+    info = {}
     for src in SOURCES:
         print(f"build {src}.cu: nvcc {_build.build_seconds[src]:.2f} s")
-        for line in _build.build_log.get(src, "").splitlines():
-            if any(k in line for k in ("entry function", "registers",
-                                       "spill")):
-                print("ptxas", line.strip())
+        info[src] = ptxas_kernels(_build.build_log.get(src, ""))
+        for k in info[src]:
+            print(f"ptxas {src}.cu {k['kernel']}: {k['registers']} "
+                  f"registers, {k['smem_bytes']} B static shared memory, "
+                  f"{k['stack_bytes']} B stack, {k['spill_bytes']} B "
+                  "spilled", flush=True)
+    return info
 
 
 def pair_stream(rng, nab: int, nbb: int, ncb: int):
@@ -1529,7 +1736,7 @@ def main() -> int:
         print(f"phase {phase}: {now - clock[0]:.1f} s", flush=True)
         clock[0] = now
 
-    build_phase(_build)
+    ptxas = build_phase(_build)
     done("build")
     bd_mats = {name: load_matrix(name) for name in BD_MATRICES}
     done("load block-dense stand-ins")
@@ -1632,13 +1839,26 @@ def main() -> int:
             "ms": tp[key]["ms"], "plain_ms": tp[key]["plain_ms"],
             "bound_ms": tp[key]["bound_ms"], "bound_by": tp[key]["bound_by"],
             "library_ms": tp[key]["library_ms"],
+            "launch_ms": tp[key]["launch_ms"],
+            "device_ms": tp[key]["device_ms"],
             "timed_on": f"{PLANNED_TIMING} widest planned class",
-            "extraction": ({k: tp[ext][k] for k in ("ms", "plain_ms",
-                                                    "bound_ms", "library_ms")}
-                           if ext in tp else None)}
-            for name, key, ext, line in (
-                ("pgather", "class", "ext_gather", 177),
-                ("proute", "route", "ext_route", 386))] + [{
+            "extraction": ({k: tp[ext][k] for k in (
+                "ms", "launch_ms", "device_ms", "plain_ms", "bound_ms",
+                "library_ms")} if ext in tp else None),
+            "hold": ({k: tp["hold"][k] for k in (
+                "ms", "launch_ms", "device_ms", "plain_ms", "bound_ms", "m",
+                "networks", "hold")} if name == "proute" else None),
+            "f64_load_off": ({where: {k: tp[at][f"apart_{k}"] for k in (
+                "launch_ms", "device_ms")} for where, at in (
+                    ("class", key), ("extraction", ext)) if at in tp}
+                if name == "pgather" else None),
+            "host_us": tp[key].get("host_us"),
+            "ptxas": [k for k in ptxas["planned"]
+                      if any(s in k["kernel"] for s in names)]}
+            for name, key, ext, line, names in (
+                ("pgather", "class", "ext_gather", 177, ("13gather_blocks",)),
+                ("proute", "route", "ext_route", 386,
+                 ("9route_all", "12route_gather", "14hold_tile_last")))] + [{
             "name": name, "route": "cuda",
             "source": "mh_spgemm_torch/csrc/pair_matmul.cu",
             "replaces": replaces[name],
@@ -1664,6 +1884,9 @@ def main() -> int:
         "scircuit": {k: th["scircuit"][k] for k in
                      ("ms", "launch_ms", "plain_ms", "bound_ms",
                       "library_ms", "words")}}]}
+    for k in kernels["kernels"]:           # what ptxas made of its source
+        src = os.path.basename(k["source"])[:-len(".cu")]
+        k.setdefault("ptxas", ptxas[src])
     print(json.dumps({"cli_gflops": cli["gflops"],
                       "dist_bench": db["devices"],
                       "total_s": time.perf_counter() - t_start}))

@@ -29,8 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # seconds spent in nvcc by this process, per source (0.0 when loaded)
 build_seconds: Dict[str, float] = {}
-# nvcc's diagnostics of this process's builds (registers, shared memory
-# and spills from -Xptxas -v), per source
+# nvcc's diagnostics (registers, shared memory and spills from -Xptxas
+# -v) of the library each source was loaded from, kept beside it
 build_log: Dict[str, str] = {}
 
 
@@ -60,6 +60,9 @@ def build(name: str) -> str:
     out = library_path(name)
     if os.path.exists(out):
         build_seconds.setdefault(name, 0.0)
+        if os.path.exists(out + ".log"):
+            with open(out + ".log") as f:
+                build_log.setdefault(name, f.read())
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     src = os.path.join(_PKG, "csrc", f"{name}.cu")
@@ -72,6 +75,8 @@ def build(name: str) -> str:
     if proc.returncode != 0:
         raise DeviceError(f"nvcc failed for {src}:\n{proc.stdout}\n"
                           f"{proc.stderr}")
+    with open(out + ".log", "w") as f:
+        f.write(proc.stderr)
     os.replace(tmp, out)
     return out
 

@@ -65,7 +65,7 @@ DEFAULT_CONFIG = SpGEMMConfig()
 
 _MODES = ("auto", "bucketed", "blockdense", "masked")
 _MODE_ITEMS = {
-    "esc": "ROADMAP Queue 1 item 9 (the DeviceCSR-level engines: "
+    "esc": "ROADMAP Queue 1 item 1 (the DeviceCSR-level engines: "
            "symbolic, numeric, binning and mode='esc')",
 }
 # Pallas-interpreter settings: in the port "on" forces the path on any

@@ -612,7 +612,8 @@ def plan_buckets(a_ptr: np.ndarray, a_col: np.ndarray,
                  planned: str = "off",
                  b_starts: Optional[np.ndarray] = None,
                  b_lens: Optional[np.ndarray] = None,
-                 forced: Optional[dict] = None) -> BucketPlan:
+                 forced: Optional[dict] = None,
+                 pow2_fill_widths: bool = False) -> BucketPlan:
     """Bin rows into width classes, consolidate small classes, build
     per-chunk entry descriptors (native builder when the host library is
     present and B is a CSR, numpy otherwise), and pick each class's
@@ -641,7 +642,11 @@ def plan_buckets(a_ptr: np.ndarray, a_col: np.ndarray,
     shapes and that frontend, every row goes to the narrowest forced
     width that holds it (``ValueError`` when none does), and no class is
     consolidated, so the shards of a mesh share one class layout
-    (:func:`plan_buckets_sharded`).  Raises :class:`SlabOverflowError`
+    (:func:`plan_buckets_sharded`).  ``pow2_fill_widths`` (the JAX
+    planner's, set under ``esc_tail="pow2"``) rounds the width class of
+    every row with long B spans (the rows headed for fill classes) up to a
+    power of two, before ``forced`` and consolidation apply, so that those
+    classes take the pow2 slab tail.  Raises :class:`SlabOverflowError`
     when the slab needs more than int32 indexing."""
     from ..utils import native as native_lib
 
@@ -681,6 +686,11 @@ def plan_buckets(a_ptr: np.ndarray, a_col: np.ndarray,
         # with one product take the W = 1 direct path
         pw = 2 ** np.ceil(np.log2(np.maximum(1, p))).astype(np.int64)
         wclass = np.where(p == 1, 1, np.maximum(2, pw))
+    if pow2_fill_widths and p.size:
+        # rows headed for fill classes (long average spans) take a pow2
+        # width, so the fill classes run the pow2 slab tail
+        pw = 2 ** np.ceil(np.log2(np.maximum(1, wclass))).astype(np.int64)
+        wclass = np.where(span >= _FILL_MIN_SPAN_WORDS, pw, wclass)
 
     if forced is not None and active.size:
         # the union's widths may be sparser than this shard's own grid:

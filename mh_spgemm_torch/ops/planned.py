@@ -136,6 +136,13 @@ def _stage_list(m: int):
     return out
 
 
+def _nstages(m: int) -> int:
+    """Stages of the bitonic network of width ``m`` (pow2):
+    ``len(_stage_list(m))``."""
+    n = m.bit_length() - 1
+    return n * (n + 1) // 2
+
+
 def _pow2(x: int) -> int:
     return 1 << max(0, int(x - 1).bit_length())
 
@@ -258,11 +265,11 @@ def _check_schedule(wblk, rowsel, lane) -> tuple:
         raise ValueError("wblk, rowsel and lane must be int32")
     if wblk.dim() < 1:
         raise ValueError("wblk must be [..., Gb]")
-    batch, Gb = tuple(wblk.shape[:-1]), wblk.shape[-1]
-    want = (*batch, Gb * 8, 128)
-    if tuple(rowsel.shape) != want or tuple(lane.shape) != want:
+    batch, Gb = wblk.shape[:-1], wblk.shape[-1]
+    want = batch + (Gb * 8, 128)
+    if rowsel.shape != want or lane.shape != want:
         raise ValueError(f"rowsel {tuple(rowsel.shape)} and lane "
-                         f"{tuple(lane.shape)} must be {want}")
+                         f"{tuple(lane.shape)} must be {tuple(want)}")
     if not (wblk.device == rowsel.device == lane.device):
         raise ValueError("wblk, rowsel and lane must share a device")
     return batch, Gb
@@ -292,14 +299,46 @@ def _lib():
     lib = _build.load("planned")
     if lib.pgather.argtypes is None:
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.pgather.argtypes = [p, ll, ll, p, ll, ll, p, ll, ll, i, p, p, p,
-                                ll, p, ll, p]
+        lib.pgather.argtypes = [p, ll, ll, p, ll, ll, p, ll, ll, i, i, p, p,
+                                p, ll, p, ll, p]
         lib.pgather.restype = ctypes.c_int
         lib.proute.argtypes = [p, ll, p, p, ll, i, p, p, i, i, i, i, p]
         lib.proute.restype = ctypes.c_int
         lib.proute_scratch_words.argtypes = [i, i, i, i]
         lib.proute_scratch_words.restype = ll
+        lib.proute_tiled.argtypes = lib.proute.argtypes[:-1] + [i, p]
+        lib.proute_tiled.restype = ctypes.c_int
+        lib.proute_tile_log.argtypes = [i, ll]
+        lib.proute_tile_log.restype = i
     return lib
+
+
+def _launch(dev: torch.device, fn, *args) -> int:
+    """Call the C entry ``fn`` with ``args`` and the current stream of
+    ``dev`` (a tensor's device, so with an index), with ``dev`` the
+    current device (switched to only where it is not already).  The
+    stream is read as a raw handle, without the host time of building a
+    ``torch.cuda.Stream`` on every call."""
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    with torch.cuda.device(dev):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+
+
+def _f64_pair(tabs: Sequence[torch.Tensor]) -> int:
+    """The first of two neighbouring planes that are the low and high
+    words of one f64 array (both of word stride 2, the second one word
+    past the first, the first 8-byte aligned), which the kernel reads with
+    one 8-byte load; -1 where there is none."""
+    for p in range(len(tabs) - 1):
+        lo, hi = tabs[p], tabs[p + 1]
+        if lo.stride(0) != 2 or hi.stride(0) != 2:
+            continue
+        at = lo.data_ptr()
+        if (at % 8 == 0 and hi.data_ptr() == at + 4
+                and lo.numel() == hi.numel()):
+            return p
+    return -1
 
 
 def pgather(tabs: Sequence[torch.Tensor], wblk: torch.Tensor,
@@ -317,8 +356,10 @@ def pgather(tabs: Sequence[torch.Tensor], wblk: torch.Tensor,
     kernel's zero-padded table does.  Returns int32[P, ..., Gb*1024].
 
     CUDA tensors go through the kernel (``csrc/planned.cu``) on the
-    current stream, and each launch adds one to ``pgather.launches``; CPU
-    tensors take :func:`pgather_plain`.  Any other device raises."""
+    current stream, two neighbouring planes that are one f64 array's
+    words with one 8-byte load a value (:func:`_f64_pair`), and each
+    launch adds one to ``pgather.launches``; CPU tensors take
+    :func:`pgather_plain`.  Any other device raises."""
     _check_tabs(tabs)
     batch, Gb = _check_schedule(wblk, rowsel, lane)
     dev = wblk.device
@@ -336,16 +377,15 @@ def pgather(tabs: Sequence[torch.Tensor], wblk: torch.Tensor,
     if not (wblk.is_contiguous() and rowsel.is_contiguous()
             and lane.is_contiguous()):
         raise ValueError("wblk, rowsel and lane must be contiguous")
+    if lane.data_ptr() % 16:
+        lane = lane.clone()                 # the kernel reads 16-byte rows
     planes = list(tabs) + [tabs[0]] * (3 - P)
     args = []
     for t in planes:
         args += [t.data_ptr(), t.stride(0), t.numel()]
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.pgather(*args, P, wblk.data_ptr(), rowsel.data_ptr(),
-                         lane.data_ptr(), nblocks, out.data_ptr(),
-                         nblocks * 1024, stream)
+    rc = _launch(dev, _lib().pgather, *args, P, _f64_pair(tabs),
+                 wblk.data_ptr(), rowsel.data_ptr(), lane.data_ptr(),
+                 nblocks, out.data_ptr(), nblocks * 1024)
     if rc != 0:
         raise DeviceError(f"pgather launch failed: CUDA error {rc} "
                           f"(blocks={nblocks}, planes={P})")
@@ -369,7 +409,7 @@ def _check_route(planes, masks, nstages, hold_w2, flags) -> tuple:
         raise ValueError(f"{P} planes given: 1 to 3 are taken")
     if m < 1024 or m & (m - 1):
         raise ValueError(f"m={m} must be a power of two >= 1024")
-    nst = len(_stage_list(m))
+    nst = _nstages(m)
     if nstages != nst:
         raise ValueError(f"nstages={nstages}, but width {m} has {nst}")
     want = (*batch, (nst + 31) // 32, m)
@@ -439,9 +479,14 @@ def proute(planes: torch.Tensor, masks: torch.Tensor, nstages: int,
     last flagged slot's word; one without ends with 0 or a copy of an
     unflagged word, as the passes fall.  Returns int32[P, ..., m].
 
-    CUDA tensors go through the kernels (``csrc/planned.cu``) on the
-    current stream, and each call adds one to ``proute.launches``; CPU
-    tensors take :func:`proute_plain`.  Any other device raises."""
+    CUDA tensors go through the kernels (``csrc/planned.cu``: the
+    stages replayed on one plane of source indices, then one gather of
+    the planes with the hold) on the current stream, and each call adds
+    one to ``proute.launches``; CPU tensors take :func:`proute_plain`.
+    Any other device raises.  The replay is one cooperative launch whose
+    passes meet at grid barriers; a barrier that waits about a second
+    (only a fault gets there) traps, so the launch fails and the next
+    call that synchronises with the stream raises."""
     P, batch, m = _check_route(planes, masks, nstages, hold_w2, flags)
     dev = planes.device
     if dev.type == "cpu":
@@ -457,17 +502,15 @@ def proute(planes: torch.Tensor, masks: torch.Tensor, nstages: int,
     if not (planes.is_contiguous() and masks.is_contiguous()
             and (flags is None or flags.is_contiguous())):
         raise ValueError("planes, masks and flags must be contiguous")
+    if flags is not None and flags.data_ptr() % 16:
+        flags = flags.clone()               # the kernels read 16-byte rows
     lib = _lib()
-    nscratch = lib.proute_scratch_words(P, nb, m, hold_w2)
-    scratch = (torch.empty(nscratch, dtype=torch.int32, device=dev)
-               if nscratch else None)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.proute(planes.data_ptr(), nb * m, out.data_ptr(),
-                        scratch.data_ptr() if scratch is not None else None,
-                        nb * m, P, masks.data_ptr(),
-                        flags.data_ptr() if flags is not None else None,
-                        nb, m, nstages, hold_w2, stream)
+    scratch = torch.empty(lib.proute_scratch_words(P, nb, m, hold_w2),
+                          dtype=torch.int32, device=dev)
+    rc = _launch(dev, lib.proute, planes.data_ptr(), nb * m, out.data_ptr(),
+                 scratch.data_ptr(), nb * m, P, masks.data_ptr(),
+                 flags.data_ptr() if flags is not None else None, nb, m,
+                 nstages, hold_w2)
     if rc != 0:
         raise DeviceError(f"proute launch failed: CUDA error {rc} "
                           f"(batch={nb}, m={m}, planes={P}, "

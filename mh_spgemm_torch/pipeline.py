@@ -123,9 +123,13 @@ def prepare_bucketed_state(A: CSR, B: CSR,
     route = check_supported(config)
     dev = resolve_device(device)
     planned = planned_mode(config, dev)
+    vwords = _vwords(config)
+    # esc_tail="pow2" also rounds fill-class widths up to a power of two
+    # where values travel as f32 words, as the JAX pipeline does
     kw = dict(min_width=config.min_bucket_width,
-              area_cap=config.bucket_area_cap, vwords=_vwords(config),
-              dma_fill=fill_mode(config, dev))
+              area_cap=config.bucket_area_cap, vwords=vwords,
+              dma_fill=fill_mode(config, dev),
+              pow2_fill_widths=config.esc_tail == "pow2" and vwords == 1)
     plan = bucketed_ops.plan_buckets(A.ptr, A.col, B.ptr, precompute=True,
                                      planned=planned, **kw)
     replanned = planned != "off" and bucketed_ops.needs_replan(plan)

@@ -286,9 +286,34 @@ def test_pgather_matches_plain(cuda, S, T, nplanes):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["pair12", "pair01", "apart"])
+def test_pgather_f64_pair_paths(cuda, layout):
+    """Both load paths word for word against the plain version: planes
+    1-2 (or 0-1) the two words of one f64 tensor, read with one 8-byte
+    load, and planes that are no such pair, read one word at a time."""
+    rng = np.random.default_rng(11)
+    T, S = 50000, 40000
+    src = rng.integers(0, T + 300, S).astype(np.int64)   # some past the end
+    wblk, rowsel, lane, _ = pn.plan_pgather(src, T)
+    sched = [torch.from_numpy(x).to(cuda) for x in (wblk, rowsel, lane)]
+    vals = torch.from_numpy(rng.standard_normal(T)).to(cuda)
+    col = torch.from_numpy(rng.integers(0, 9999, T).astype(np.int32)).to(cuda)
+    w = vals.view(torch.int32)
+    tabs = {"pair12": [col, w[0::2], w[1::2]], "pair01": [w[0::2], w[1::2]],
+            "apart": [w[1::2], w[0::2], col]}[layout]
+    assert pn._f64_pair(tabs) == {"pair12": 1, "pair01": 0,
+                                  "apart": -1}[layout]
+    out = pn.pgather(tabs, *sched)
+    torch.cuda.synchronize()
+    assert torch.equal(out, pn.pgather_plain(tabs, *sched))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("nplanes", [1, 2, 3])
-@pytest.mark.parametrize("m,hold_w2", [(1024, 1), (1024, 8), (32768, 2048),
-                                       (131072, 8), (131072, 32768)])
+@pytest.mark.parametrize("m,hold_w2", [(1024, 1), (1024, 8), (16384, 2048),
+                                       (32768, 2048), (65536, 64),
+                                       (65536, 1024), (131072, 8),
+                                       (131072, 32768)])
 def test_proute_matches_plain(cuda, m, hold_w2, nplanes):
     """Three networks at once: every word against the plain version, and
     without the hold against out[dest] = in (exact).  Masks of random bits

@@ -182,3 +182,21 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok ")
+
+
+def test_build_reads_the_log_kept_beside_a_library(tmp_path, monkeypatch):
+    """A library built earlier is loaded without nvcc, and its ptxas
+    diagnostics come back from the log kept beside it, so a run that
+    reuses a build still reports the registers of what it runs."""
+    from mh_spgemm_torch import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "build_log", {})
+    monkeypatch.setattr(_build, "build_seconds", {})
+    path = _build.library_path("planned")
+    assert os.path.dirname(path) == str(tmp_path)
+    open(path, "wb").close()
+    with open(path + ".log", "w") as f:
+        f.write("ptxas info    : Used 93 registers")
+    assert _build.build("planned") == path
+    assert _build.build_seconds["planned"] == 0.0
+    assert "93 registers" in _build.build_log["planned"]

@@ -202,6 +202,23 @@ def test_proute_batches_networks():
         assert torch.equal(got[:, b], one)
 
 
+def test_f64_pair_detection():
+    """The kernel reads two neighbouring planes with one 8-byte load only
+    where they are the low and high words of one f64 array, in order."""
+    v = torch.zeros(100, dtype=torch.float64)
+    w = v.view(torch.int32)
+    col = torch.zeros(100, dtype=torch.int32)
+    assert tpn._f64_pair([col, w[0::2], w[1::2]]) == 1
+    assert tpn._f64_pair([w[0::2], w[1::2]]) == 0
+    assert tpn._f64_pair([w[1::2], w[0::2]]) == -1           # swapped
+    assert tpn._f64_pair([w[0::2], w[1::2][:99]]) == -1      # lengths differ
+    assert tpn._f64_pair([w[1:-1][0::2], w[1:-1][1::2]]) == -1  # misaligned
+    assert tpn._f64_pair([col, col]) == -1
+    assert tpn._f64_pair([w[0::2]]) == -1
+    assert tpn._nstages(1024) == len(tpn._stage_list(1024))
+    assert tpn._nstages(131072) == len(tpn._stage_list(131072))
+
+
 def test_wrappers_check_their_inputs():
     """Shapes, types, stage counts and devices the kernels do not take
     raise; a device without a kernel raises DeviceError."""
