@@ -10,6 +10,12 @@
    source, started together; prints the build times and, for each
    kernel, the registers, static shared memory, stack and spills ptxas
    reports (also in each kernel's ``ptxas`` entry of the kernels line).
+   Then ``cuobjdump -sass`` of the built ``pair_matmul`` library: per
+   pair kernel the count of DMMA, HMMA ... TF32, LDGSTS and UTMALDG
+   instructions, beside the registers, dynamic shared memory, local
+   bytes and resident blocks per SM the runtime reports; the f64 kernel
+   must have DMMA and keep two blocks per SM, the f32 kernel TF32 HMMA,
+   both LDGSTS or UTMALDG (in each one's ``sass`` entry).
 3. Kernel phase: ``esc_tail_flat`` against its plain PyTorch version on
    the card for w2 in {2, 8, 256, 2048, 8192, 32768, 65536}, f64 and
    f32, on duplicate-heavy, empty and all-same-key segments (keys and
@@ -34,11 +40,18 @@
    bits, and without the hold against ``out[dest] = in`` (all exact);
    ``pair_matmul_f64`` and ``pair_matmul_f32`` against their plain
    versions on a synthetic stream (segments of 1 to 64 pairs, dead
-   pairs, C blocks with no pair) and on pdb1HYS's own pair stream (f64
-   within 1e-9 absolute-or-relative; f32 within 1e-4 of the magnitude of
-   the summed terms, the same pair product over |a| and |b|: two f32
-   summation orders of up to 8192 random-sign terms differ by more than
-   1e-4 absolute where the sum cancels to near zero); ``block_gather``
+   pairs, C blocks with no pair), on the boundary streams of
+   ``ops/pair_matmul.boundary_streams`` (segments of 1, 2, 3 and
+   37 pairs with dead pairs at their starts and ends, an all-dead C
+   block, empty C blocks, and ncb = 1) and on pdb1HYS's own pair stream
+   (f64 within 1e-9 absolute-or-relative; f32 within 1e-4 of the
+   magnitude of the summed terms, the same pair product over |a| and
+   |b|: two f32 summation orders of up to 8192 random-sign terms differ
+   by more than 1e-4 absolute where the sum cancels to near zero); the
+   f32 kernel ``torch.equal`` to its plain version on 0/1 blocks (the
+   boundary streams and pdb1HYS's patterns), and its max abs error
+   against the f64 product of the same f32 inputs at most 4 times that
+   of ``torch.bmm`` in full f32; ``block_gather``
    against ``index_select`` for f64, f32 and int32 (exact);
    ``halo_exchange`` against its plain version and against
    ``torch.stack(sends).transpose(0, 1)`` for D in {1, 2, 4, 8} and vr in
@@ -117,8 +130,11 @@
    every timed call recorded), ``pgather`` also with its 8-byte f64 load
    off and by host time, ``proute`` also with the hold at scircuit's
    widest A route (m = 16384, hold 2048), and
-   the pair matmuls and ``block_gather`` at pwtk's shapes (``torch.bmm``
-   of the pre-gathered pairs, ``torch.index_select``).
+   the pair matmuls at pwtk's and pdb1HYS's shapes, each in turns with
+   ``torch.bmm`` of the pre-gathered pairs (kernel, bmm, bmm, kernel),
+   with TFLOP/s (f64 bound: DMMA at 67 TFLOP/s; f32: three TF32 passes
+   at 495 TFLOP/s, and the FFMA bound beside it), and ``block_gather`` at
+   pwtk's (``torch.index_select``).
 10. CLI phase: ``python -m mh_spgemm_torch pdb1HYS --check --stats --json
    --iters 3`` in a subprocess must exit 0, pass its check on the
    block-dense engine, and print nothing of JAX; ``python -m
@@ -150,6 +166,13 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet, 700 W
 FP64_FLOPS = 34e12              # H100 SXM data sheet, FP64 (non-tensor)
 FP64_TC_FLOPS = 67e12           # H100 SXM data sheet, FP64 tensor core
 FP32_FLOPS = 67e12              # H100 SXM data sheet, FP32 (non-tensor)
+TF32_TC_FLOPS = 495e12          # H100 SXM data sheet, TF32 tensor core, dense
+F32_ERR_RATIO = 4.0             # f32 kernel's error against f64: <= 4x bmm's
+# records of a device_profile taken before it gives up (its docstring)
+PROFILE_ATTEMPTS = 8
+# the pair kernels' mangled names hold these (template on the value type)
+PAIR_KERNELS = {"pair_matmul_f64": "pair_matmul_kernelIdE",
+                "pair_matmul_f32": "pair_matmul_kernelIfE"}
 W2S = (2, 8, 256, 2048, 8192, 32768, 65536)
 MATRICES = ("scircuit", "cage12", "webbase-1M")
 BD_MATRICES = ("pdb1HYS", "pwtk")
@@ -599,7 +622,8 @@ def planned_vs_off_phase(torch, mt, mats: dict, refs: dict, states: dict,
                 "matrix": name, "config": which, "warm_ms": wm,
                 "busy_ms": prof["busy_ms"], "kernels": prof["kernels"],
                 "idle_share": 1.0 - prof["busy_ms"] / wm, "top": top,
-                "partial": prof["partial"]}), flush=True)
+                "partial": prof["partial"],
+                "profile_attempts": prof["attempts"]}), flush=True)
         row = {"matrix": name, "warm_ms": warm, "cold_ms": cold,
                "frontends": {k: [(c.W, c.frontend) for c in v.plan.classes]
                              for k, v in st.items()},
@@ -806,13 +830,13 @@ def time_pgather(torch, pn, tabs, sched, label: str) -> dict:
     runs = {"pair": args + [P, pair] + tail}
     if pair >= 0:
         runs["apart"] = args + [P, -1] + tail
-    launch_ms, device_ms = {}, {}
+    launch_ms, device_ms, attempts = {}, {}, {}
     for key, a in runs.items():
         launch_ms[key] = cuda_ms(lambda: lib.pgather(*a), 100)
         check(torch.equal(out, pn.pgather(tabs, *sched)),
               f"pgather's launch alone ({key}) differs on {label}")
-        device_ms[key] = device_profile(
-            torch, lambda: lib.pgather(*a))["busy_ms"]
+        prof = device_profile(torch, lambda: lib.pgather(*a))
+        device_ms[key], attempts[key] = prof["busy_ms"], prof["attempts"]
     host_us = {}
     for key, fn in (("call", lambda: pn.pgather(tabs, *sched)),
                     ("launch", lambda: lib.pgather(*runs["pair"]))):
@@ -852,7 +876,7 @@ def time_pgather(torch, pn, tabs, sched, label: str) -> dict:
             "apart_device_ms": device_ms.get("apart"),
             "host_us": host_us, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "positions": pos}
+            "positions": pos, "profile_attempts": attempts}
 
 
 def time_proute(torch, pn, x, masks, nst, dest, label: str, hold: int = 1,
@@ -911,7 +935,7 @@ def time_proute(torch, pn, x, masks, nst, dest, label: str, hold: int = 1,
     return {"ms": ms, "launch_ms": launch_ms, "device_ms": device_ms,
             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
             "bound_by": "bytes", "m": m, "networks": nb, "hold": hold,
-            "tile": tile}
+            "tile": tile, "profile_attempts": prof["attempts"]}
 
 
 def time_planned(torch, pn, bk, state) -> dict:
@@ -1131,12 +1155,15 @@ def device_profile(torch, fn, reps: int = 5, whole: bool = True) -> dict:
     number of times that is not a multiple of ``reps`` (a call whose
     launches were not all recorded); without it, ``partial`` names such
     kernels.  The profiler now and then records nothing or part of a
-    step, so a record with no device time or a partial count is taken
-    again, up to three times."""
+    step, at times several records in a row, so a record with no device
+    time or a partial count is taken again, up to PROFILE_ATTEMPTS
+    times, a pause of 0.2 s before each retry."""
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
+    for attempt in range(PROFILE_ATTEMPTS):
+        if attempt:
+            time.sleep(0.2)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
@@ -1168,6 +1195,7 @@ def device_profile(torch, fn, reps: int = 5, whole: bool = True) -> dict:
           f"the profiler recorded part of a call's launches over {reps} "
           f"calls: {partial}")
     return {"busy_ms": busy_us / 1e3 / reps, "partial": partial,
+            "attempts": attempt + 1,
             "kernels": sum(n for n, _ in by_name.values()) / reps,
             "by_name": {k: {"launches": n / reps, "ms": t / 1e3 / reps}
                         for k, (n, t) in sorted(by_name.items(),
@@ -1185,7 +1213,8 @@ def profile_program(torch, st, program_ms: float, label: str) -> dict:
     try:
         prof = device_profile(torch, lambda: st["fn"](*st["args"]), reps=1)
         row.update(kernels=prof["kernels"], busy_ms=prof["busy_ms"],
-                   idle_share=1.0 - prof["busy_ms"] / program_ms)
+                   idle_share=1.0 - prof["busy_ms"] / program_ms,
+                   profile_attempts=prof["attempts"])
     except Exception as exc:            # the measurement only, not a check
         row["profile"] = f"not measured ({type(exc).__name__}: {exc})"
     print("dist_profile " + json.dumps(row), flush=True)
@@ -1357,36 +1386,9 @@ def dist_bench_phase() -> dict:
     return res
 
 
-def ptxas_kernels(log: str) -> list:
-    """Each kernel of one build's ``-Xptxas -v`` output: its mangled name
-    (which holds the plain name and the template arguments, as in
-    ``_ZN..13gather_blocksILi3ELi1EEEv..``), registers, static shared
-    memory, stack frame and spill bytes."""
-    out, cur = [], None
-    for line in log.splitlines():
-        hit = re.search(r"Compiling entry function '(\w+)'", line)
-        if hit:
-            cur = {"kernel": hit.group(1),
-                   "registers": None, "smem_bytes": 0, "stack_bytes": 0,
-                   "spill_bytes": 0}
-            out.append(cur)
-        elif cur is not None:
-            hit = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                            r"stores, (\d+) bytes spill loads", line)
-            if hit:
-                cur["stack_bytes"] = int(hit.group(1))
-                cur["spill_bytes"] = int(hit.group(2)) + int(hit.group(3))
-            hit = re.search(r"Used (\d+) registers", line)
-            if hit:
-                cur["registers"] = int(hit.group(1))
-                sm = re.search(r"(\d+) bytes smem", line)
-                cur["smem_bytes"] = int(sm.group(1)) if sm else 0
-    return out
-
-
 def build_phase(_build) -> dict:
     """One nvcc per source, all started together.  Returns each source's
-    kernels as ptxas reports them (:func:`ptxas_kernels`)."""
+    kernels as ptxas reports them (``_build.ptxas_kernels``)."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as ex:
         list(ex.map(_build.build, SOURCES))
@@ -1395,7 +1397,7 @@ def build_phase(_build) -> dict:
     info = {}
     for src in SOURCES:
         print(f"build {src}.cu: nvcc {_build.build_seconds[src]:.2f} s")
-        info[src] = ptxas_kernels(_build.build_log.get(src, ""))
+        info[src] = _build.ptxas_kernels(_build.build_log.get(src, ""))
         for k in info[src]:
             print(f"ptxas {src}.cu {k['kernel']}: {k['registers']} "
                   f"registers, {k['smem_bytes']} B static shared memory, "
@@ -1448,9 +1450,28 @@ def check_pair_kernel(torch, pm, a, b, stream, ncb: int, label: str):
     return e
 
 
+def matrix_inputs(torch, tbd, A, dev) -> dict:
+    """The block-dense engine's dense blocks and pair stream for A·A (a
+    CSR matrix)."""
+    plan = tbd.plan_blockdense(A.ptr, A.col, A.ptr, A.col, A.M, A.N, A.N,
+                               max_pairs=1 << 18)
+    tbd.upload_blockplan(plan, dev)
+    d = plan.dev
+    val = torch.from_numpy(A.val).to(dev)
+    ad, ap = tbd.densify(d["a_blk"], d["a_pos"], val, nblk=plan.nab)
+    bd, bp = tbd.densify(d["b_blk"], d["b_pos"], val, nblk=plan.nbb)
+    return {"stream": (d["pair_a"], d["pair_b"], d["pair_cb"], d["live"]),
+            "ncb": plan.ncb, "values": (ad, bd), "patterns": (ap, bp)}
+
+
 def pair_kernel_phase(torch, pm, tbd, pdb, dev) -> dict:
-    """Both pair matmuls on a synthetic stream and on pdb1HYS's own
-    pair stream, and block_gather against index_select."""
+    """Both pair matmuls on a synthetic stream, on the boundary streams
+    (segments of 1, 2, 3 and 37 pairs, dead pairs at their ends, an
+    all-dead C block, ncb = 1) and on pdb1HYS's own pair stream; the f32
+    kernel exactly on 0/1 patterns and, on random normal blocks, within
+    F32_ERR_RATIO times torch.bmm's error against the f64 product;
+    block_gather against index_select.  Returns the max abs errors and
+    the f32 accuracy figures."""
     errs = {"pair_matmul_f64": 0.0, "pair_matmul_f32": 0.0}
     rng = np.random.default_rng(2)
     ncb = 200
@@ -1465,18 +1486,39 @@ def pair_kernel_phase(torch, pm, tbd, pdb, dev) -> dict:
             else "pair_matmul_f32"
         errs[name] = max(errs[name], check_pair_kernel(
             torch, pm, a, b, stream, ncb, "synthetic"))
-    plan = tbd.plan_blockdense(pdb.ptr, pdb.col, pdb.ptr, pdb.col, pdb.M,
-                               pdb.N, pdb.N, max_pairs=1 << 18)
-    tbd.upload_blockplan(plan, dev)
-    d = plan.dev
-    val = torch.from_numpy(pdb.val).to(dev)
-    ad, ap = tbd.densify(d["a_blk"], d["a_pos"], val, nblk=plan.nab)
-    bd, bp = tbd.densify(d["b_blk"], d["b_pos"], val, nblk=plan.nbb)
-    stream = (d["pair_a"], d["pair_b"], d["pair_cb"], d["live"])
+    a = torch.from_numpy(rng.standard_normal((60, BS, BS))).to(dev)
+    b = torch.from_numpy(rng.standard_normal((50, BS, BS))).to(dev)
+    for k, (st, nb) in enumerate(pm.boundary_streams(rng, 60, 50)):
+        st = [torch.from_numpy(x).to(dev) for x in st]
+        label = f"boundary stream {k} (ncb={nb})"
+        errs["pair_matmul_f64"] = max(errs["pair_matmul_f64"],
+                                      check_pair_kernel(torch, pm, a, b, st,
+                                                        nb, label))
+        errs["pair_matmul_f32"] = max(errs["pair_matmul_f32"],
+                                      check_pair_kernel(torch, pm, a.float(),
+                                                        b.float(), st, nb,
+                                                        label))
+        check_pattern_exact(torch, pm, (a > 0.3).float(), (b > 0.3).float(),
+                            st, nb, label + " 0/1")
+    st = [torch.from_numpy(x).to(dev)
+          for x in pm.boundary_streams(rng, 60, 50)[0][0]]
+    k_err, bmm_err = pm.f32_errors(pm.pair_matmul_f32, a.float(), b.float(),
+                                    st, 11)
+    check(k_err <= F32_ERR_RATIO * bmm_err,
+          f"pair_matmul_f32's error against f64 ({k_err:.3e}) is more than "
+          f"{F32_ERR_RATIO} times torch.bmm's ({bmm_err:.3e})")
+    print(f"kernel pair_matmul_f32 accuracy: max abs err against the f64 "
+          f"product {k_err:.4e}, torch.bmm in f32 {bmm_err:.4e}, ratio "
+          f"{k_err / bmm_err:.3f} (limit {F32_ERR_RATIO}) ok", flush=True)
+    m = matrix_inputs(torch, tbd, pdb, dev)
+    stream, nb = m["stream"], m["ncb"]
     errs["pair_matmul_f64"] = max(errs["pair_matmul_f64"], check_pair_kernel(
-        torch, pm, ad, bd, stream, plan.ncb, "pdb1HYS values"))
+        torch, pm, *m["values"], stream, nb, "pdb1HYS values"))
     errs["pair_matmul_f32"] = max(errs["pair_matmul_f32"], check_pair_kernel(
-        torch, pm, ap, bp, stream, plan.ncb, "pdb1HYS patterns"))
+        torch, pm, *m["patterns"], stream, nb, "pdb1HYS patterns"))
+    check_pattern_exact(torch, pm, *m["patterns"], stream, nb,
+                        "pdb1HYS patterns")
+    del m
     for dtype in (torch.float64, torch.float32, torch.int32):
         table = torch.from_numpy(rng.integers(-2**20, 2**20, (64, BS, BS))
                                  ).to(dtype).to(dev)
@@ -1489,7 +1531,67 @@ def pair_kernel_phase(torch, pm, tbd, pdb, dev) -> dict:
         print(f"kernel block_gather {str(dtype):14s} blocks=500 exact ok",
               flush=True)
     errs["block_gather"] = 0.0
+    errs["f32_accuracy"] = {"kernel_err_vs_f64": k_err,
+                            "bmm_err_vs_f64": bmm_err,
+                            "ratio": k_err / bmm_err,
+                            "limit": F32_ERR_RATIO}
     return errs
+
+
+def check_pattern_exact(torch, pm, a, b, stream, ncb: int, label: str):
+    """The f32 kernel on 0/1 blocks must equal its plain version bit for
+    bit: every partial sum is an integer below 2^24."""
+    out = pm.pair_matmul_f32(a, b, *stream, ncb=ncb)
+    torch.cuda.synchronize()
+    check(torch.equal(out, pm.pair_matmul_plain(a, b, *stream, ncb=ncb)),
+          f"pair_matmul_f32 is not exact on {label}")
+    print(f"kernel pair_matmul_f32 {label}: exact ok", flush=True)
+
+
+def sass_phase(torch, _build, pm) -> dict:
+    """``cuobjdump -sass`` of the built pair_matmul library: per pair
+    kernel the count of DMMA (f64), HMMA ... TF32 (f32), LDGSTS
+    (cp.async) and UTMALDG (TMA) instructions; the f64 kernel must have
+    DMMA, the f32 kernel TF32 HMMA, both LDGSTS or UTMALDG.  Also what
+    the runtime reports of each (registers, dynamic shared memory, local
+    bytes, resident blocks per SM): the f64 kernel must keep two blocks
+    per SM."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = _build.build("pair_matmul")
+    proc = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True)
+    counts, cur = {}, None
+    for line in proc.stdout.splitlines():
+        hit = re.search(r"Function : (\S+)", line)
+        if hit:
+            cur = next((n for n, tag in PAIR_KERNELS.items()
+                        if tag in hit.group(1)), None)
+            if cur:
+                counts[cur] = {"DMMA": 0, "HMMA_TF32": 0, "LDGSTS": 0,
+                               "UTMALDG": 0}
+            continue
+        if cur is None:
+            continue
+        c = counts[cur]
+        c["DMMA"] += "DMMA" in line
+        c["HMMA_TF32"] += "HMMA" in line and "TF32" in line
+        c["LDGSTS"] += "LDGSTS" in line
+        c["UTMALDG"] += "UTMALDG" in line
+    for name, dtype in (("pair_matmul_f64", torch.float64),
+                        ("pair_matmul_f32", torch.float32)):
+        check(name in counts, f"{name}'s kernel is not in {lib}")
+        counts[name]["runtime"] = pm.kernel_info(dtype)
+        print(f"sass {name}: " + json.dumps(counts[name]), flush=True)
+    f64, f32 = counts["pair_matmul_f64"], counts["pair_matmul_f32"]
+    check(f64["DMMA"] > 0, "pair_matmul_f64 has no DMMA")
+    check(f32["HMMA_TF32"] > 0, "pair_matmul_f32 has no TF32 HMMA")
+    check(all(c["LDGSTS"] + c["UTMALDG"] > 0 for c in (f64, f32)),
+          "a pair kernel has no LDGSTS or UTMALDG")
+    check(f64["runtime"]["blocks_per_sm"] >= 2,
+          f"pair_matmul_f64 keeps {f64['runtime']['blocks_per_sm']} blocks "
+          "per SM")
+    return counts
 
 
 def blockdense_phase(torch, mt, pm, rf, mats: dict, dev):
@@ -1605,50 +1707,76 @@ def blockdense_stages(torch, pm, tbd, bk, mats: dict, states: dict, dev):
     return ext_ms
 
 
-def time_pair_kernels(torch, pm, tbd, state) -> dict:
-    """The pair matmuls and block_gather at pwtk's shapes, warm."""
-    plan = state.plan
-    d = plan.dev
-    stream = (d["pair_a"], d["pair_b"], d["pair_cb"], d["live"])
-    G, ncb = plan.npairs, plan.ncb
-    res = {}
-    for name, fn, a, b, peak in (
-            ("pair_matmul_f64", pm.pair_matmul_f64, d["a_dense"],
-             d["b_dense"], FP64_TC_FLOPS),
-            ("pair_matmul_f32", pm.pair_matmul_f32, d["a_pat"], d["b_pat"],
-             FP32_FLOPS)):
-        ms = cuda_ms(lambda: fn(a, b, *stream, ncb=ncb), 10)
-        plain_ms = cuda_ms(lambda: pm.pair_matmul_plain(a, b, *stream,
-                                                        ncb=ncb), 2,
-                           warmup=1)
-        ga = a.index_select(0, d["pair_a"])
-        gb = b.index_select(0, d["pair_b"])
-        lib_ms = cuda_ms(lambda: torch.bmm(ga, gb), 10)
-        del ga, gb
-        # every pair is live; each A and B block a pair names is read
-        # once, each C block written once, the four streams read once
-        flops = 2 * G * BS ** 3
-        nblk = (int(torch.unique(d["pair_a"]).numel())
-                + int(torch.unique(d["pair_b"]).numel()) + ncb)
-        nbytes = nblk * BS * BS * a.element_size() + 4 * G * 4
-        ops_ms = flops / peak * 1e3
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ns_elem = ms * 1e6 / (G * BS * BS)
-        res[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                     "bound_ms": max(ops_ms, bytes_ms),
-                     "bound_by": ("operations" if ops_ms >= bytes_ms
-                                  else "bytes"),
-                     "ns_per_pair_elem": ns_elem, "tflops": flops / ms / 1e9}
-        print(f"timing {name} on pwtk ({G} pairs, {ncb} C blocks): "
-              f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
-              f"{plain_ms:.4f} ms, torch.bmm of the gathered pairs "
-              f"{lib_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms "
-              f"({flops} flop, {nbytes} B); {ns_elem:.4f} ns per dense "
-              f"pair element", flush=True)
+def time_pair_kernels(torch, pm, tbd, states: dict) -> dict:
+    """The pair matmuls at pwtk's and pdb1HYS's shapes, warm, each in
+    turns with torch.bmm of the pre-gathered pairs (kernel, bmm, bmm,
+    kernel); block_gather at pwtk's."""
+    res = {"pair_matmul_f64": {}, "pair_matmul_f32": {}}
+    for matrix in ("pwtk", "pdb1HYS"):
+        plan = states[matrix].plan
+        d = plan.dev
+        stream = (d["pair_a"], d["pair_b"], d["pair_cb"], d["live"])
+        G, ncb = int(d["live"].sum()), plan.ncb
+        for name, fn, a, b in (
+                ("pair_matmul_f64", pm.pair_matmul_f64, d["a_dense"],
+                 d["b_dense"]),
+                ("pair_matmul_f32", pm.pair_matmul_f32, d["a_pat"],
+                 d["b_pat"])):
+            ga = a.index_select(0, d["pair_a"])
+            gb = b.index_select(0, d["pair_b"])
+            turns = {"kernel": [], "bmm": []}
+            for who in ("kernel", "bmm", "bmm", "kernel"):
+                turns[who].append(cuda_ms(
+                    (lambda: fn(a, b, *stream, ncb=ncb)) if who == "kernel"
+                    else (lambda: torch.bmm(ga, gb)), 10))
+            del ga, gb
+            plain_ms = cuda_ms(lambda: pm.pair_matmul_plain(a, b, *stream,
+                                                            ncb=ncb), 2,
+                               warmup=1)
+            ms, lib_ms = min(turns["kernel"]), min(turns["bmm"])
+            # each live pair's product; each A and B block a pair names is
+            # read once, each C block written once, the four streams once
+            flops = 2 * G * BS ** 3
+            nblk = (int(torch.unique(d["pair_a"]).numel())
+                    + int(torch.unique(d["pair_b"]).numel()) + ncb)
+            nbytes = (nblk * BS * BS * a.element_size()
+                      + 4 * 4 * d["pair_a"].numel())
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            if name == "pair_matmul_f64":
+                ops_ms, ops = flops / FP64_TC_FLOPS * 1e3, "DMMA at 67 TFLOP/s"
+                extra = {}
+            else:
+                ops_ms = 3 * flops / TF32_TC_FLOPS * 1e3
+                ops = "3 TF32 passes at 495 TFLOP/s"
+                extra = {"bound_ffma_ms": max(flops / FP32_FLOPS * 1e3,
+                                              bytes_ms)}
+            row = {"ms": ms, "ms_turns": turns["kernel"], "plain_ms": plain_ms,
+                   "library_ms": lib_ms, "library_ms_turns": turns["bmm"],
+                   "bound_ms": max(ops_ms, bytes_ms),
+                   "bound_by": ("operations" if ops_ms >= bytes_ms
+                                else "bytes"),
+                   "bound_ops": ops, **extra, "tflops": flops / ms / 1e9,
+                   "library_tflops": flops / lib_ms / 1e9, "pairs": G,
+                   "c_blocks": ncb, "flop": flops, "bytes": nbytes}
+            res[name][matrix] = row
+            print(f"timing {name} on {matrix} ({G} pairs, {ncb} C blocks): "
+                  f"{turns['kernel']} ms ({flops / ms / 1e9:.2f} TFLOP/s), "
+                  f"torch.bmm of the gathered pairs {turns['bmm']} ms "
+                  f"({flops / lib_ms / 1e9:.2f} TFLOP/s), in turns; plain "
+                  f"{plain_ms:.4f} ms; bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}: {ops}; {flops} flop, {nbytes} B)"
+                  + (f", FFMA bound {extra['bound_ffma_ms']:.4f} ms"
+                     if extra else ""), flush=True)
+    per_elem = {n: res[n]["pwtk"]["ms"] * 1e6
+                / (res[n]["pwtk"]["pairs"] * BS * BS) for n in res}
     print(f"routing constant _per_elem_s (TPU v5e, unchanged): f64 on the "
           f"pair kernel {tbd._per_elem_s(torch.float64, True) * 1e9:.1f} "
           f"ns, f32 {tbd._per_elem_s(torch.float32, True) * 1e9:.1f} ns "
-          "per dense pair element", flush=True)
+          f"per dense pair element; measured on pwtk: f64 "
+          f"{per_elem['pair_matmul_f64']:.4f} ns, f32 "
+          f"{per_elem['pair_matmul_f32']:.4f} ns", flush=True)
+    d = states["pwtk"].plan.dev
+    G = d["pair_a"].numel()
     table, idx = d["a_dense"], d["pair_a"]
     ms = cuda_ms(lambda: pm.block_gather(table, idx), 10)
     plain_ms = cuda_ms(lambda: pm.block_gather_plain(table, idx), 10)
@@ -1737,7 +1865,8 @@ def main() -> int:
         clock[0] = now
 
     ptxas = build_phase(_build)
-    done("build")
+    sass = sass_phase(torch, _build, pm)
+    done("build and SASS")
     bd_mats = {name: load_matrix(name) for name in BD_MATRICES}
     done("load block-dense stand-ins")
     errs = kernel_phase(torch, et, dev)
@@ -1771,7 +1900,7 @@ def main() -> int:
     done("block-dense")
     ext_ms.update(blockdense_stages(torch, pm, tbd, bk, bd_mats, bd_states,
                                     dev))
-    pt = time_pair_kernels(torch, pm, tbd, bd_states["pwtk"])
+    pt = time_pair_kernels(torch, pm, tbd, bd_states)
     del bd_states
     done("block-dense stages and pair-kernel timing")
     m_launches = masked_phase(torch, mt, rf, mats, refs, dev)
@@ -1853,6 +1982,13 @@ def main() -> int:
                     ("class", key), ("extraction", ext)) if at in tp}
                 if name == "pgather" else None),
             "host_us": tp[key].get("host_us"),
+            # records device_profile took for each device time (a rising
+            # count is the profiler flaking more, not the kernel)
+            "profile_attempts": {where: tp[at]["profile_attempts"]
+                                 for where, at in (
+                                     ("timed", key), ("extraction", ext),
+                                     ("hold", "hold" if name == "proute"
+                                      else None)) if at in tp},
             "ptxas": [k for k in ptxas["planned"]
                       if any(s in k["kernel"] for s in names)]}
             for name, key, ext, line, names in (
@@ -1863,13 +1999,26 @@ def main() -> int:
             "source": "mh_spgemm_torch/csrc/pair_matmul.cu",
             "replaces": replaces[name],
             "launches": bd_launches[name], "max_abs_err": perrs[name],
-            "ms": pt[name]["ms"], "plain_ms": pt[name]["plain_ms"],
-            "bound_ms": pt[name]["bound_ms"],
-            "bound_by": pt[name]["bound_by"],
-            "library_ms": pt[name]["library_ms"],
-            "timed_on": "pwtk"}
-            for name in ("pair_matmul_f32", "pair_matmul_f64",
-                         "block_gather")] + [{
+            **{k: pt[name]["pwtk"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "timed_on": "pwtk",
+            "pwtk": pt[name]["pwtk"], "pdb1HYS": pt[name]["pdb1HYS"],
+            "sass": sass[name],
+            "f32_accuracy": (perrs["f32_accuracy"]
+                             if name == "pair_matmul_f32" else None),
+            "ptxas": [k for k in ptxas["pair_matmul"]
+                      if PAIR_KERNELS[name] in k["kernel"]]}
+            for name in ("pair_matmul_f32", "pair_matmul_f64")] + [{
+            "name": "block_gather", "route": "cuda",
+            "source": "mh_spgemm_torch/csrc/pair_matmul.cu",
+            "replaces": replaces["block_gather"],
+            "launches": bd_launches["block_gather"],
+            "max_abs_err": perrs["block_gather"],
+            **{k: pt["block_gather"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "timed_on": "pwtk",
+            "ptxas": [k for k in ptxas["pair_matmul"]
+                      if "block_gather_kernel" in k["kernel"]]}] + [{
         "name": "halo_exchange", "route": "cuda",
         "source": "mh_spgemm_torch/csrc/remote_fetch.cu",
         "replaces": "mh_spgemm_tpu/ops/remote_fetch.py:67",

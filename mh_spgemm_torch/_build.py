@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -89,3 +90,30 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(build(name))
         _LIBS[name] = lib
     return lib
+
+
+def ptxas_kernels(log: str) -> list:
+    """Each kernel of one build's ``-Xptxas -v`` output: its mangled name
+    (which holds the plain name and the template arguments, as in
+    ``_ZN..13gather_blocksILi3ELi1EEEv..``), registers, static shared
+    memory, stack frame and spill bytes."""
+    out, cur = [], None
+    for line in log.splitlines():
+        hit = re.search(r"Compiling entry function '(\w+)'", line)
+        if hit:
+            cur = {"kernel": hit.group(1),
+                   "registers": None, "smem_bytes": 0, "stack_bytes": 0,
+                   "spill_bytes": 0}
+            out.append(cur)
+        elif cur is not None:
+            hit = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads", line)
+            if hit:
+                cur["stack_bytes"] = int(hit.group(1))
+                cur["spill_bytes"] = int(hit.group(2)) + int(hit.group(3))
+            hit = re.search(r"Used (\d+) registers", line)
+            if hit:
+                cur["registers"] = int(hit.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out

@@ -10,12 +10,18 @@ and a pair stream ``pair_a``, ``pair_b``, ``pair_cb`` (int32 [G],
     out[c] = sum over g with pair_cb[g] == c of live[g] * a[pair_a[g]] @ b[pair_b[g]]
 
 for c < ``ncb``; a C block with no live pair is zero.  The TPU kernels
-computed this in f32 at ``Precision.HIGHEST`` and, for f64, through bf16
-slices with a double-f32 accumulator; the card has native f64, so
-:func:`pair_matmul_f64` computes in f64 directly and needs no error
-certificate.  A nondecreasing ``pair_cb`` is the caller's contract: the
-plain versions check it, the CUDA wrappers do not (the check would cost
-a host sync per call).
+computed this in f32 at ``Precision.HIGHEST`` (a multi-pass bf16
+emulation of f32 on the matrix unit) and, for f64, through bf16 slices
+with a double-f32 accumulator.  On the card :func:`pair_matmul_f64`
+computes in f64 on the FP64 tensor cores and needs no error certificate;
+:func:`pair_matmul_f32` runs the TF32 tensor cores in split form
+(3xTF32: each operand is split into two TF32 parts and three of the
+four part products are summed in f32), whose error is of the order of
+f32 FFMA's and which is exact on 0/1 operands.  A nondecreasing
+``pair_cb`` is the caller's contract: the plain versions check it, the
+CUDA wrappers do not (the check would cost a host sync per call).  The
+CUDA wrappers take ``a`` and ``b`` only where they start on a 16-byte
+boundary (the kernels copy them in 16-byte chunks).
 
 Block gather: ``table[idx]`` for whole blocks of a [T, r, c] table of 4-
 or 8-byte elements.  No engine calls it (as in the JAX package).
@@ -29,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -90,6 +97,40 @@ def pair_matmul_plain(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def boundary_streams(rng, nab: int, nbb: int):
+    """Pair streams on which a kernel's ring crosses pair and segment
+    boundaries, for checking the kernels against :func:`pair_matmul_plain`:
+    C blocks with segments of 1, 2, 3 and 37 pairs, dead pairs at segment
+    starts and ends and inside, a C block whose pairs are all dead, C
+    blocks with no pair (among them the last); then a stream of one C
+    block (ncb = 1) that starts with a dead pair.  Returns a list of
+    ((pair_a, pair_b, pair_cb, live) as int32 numpy arrays, ncb)."""
+    segs = ((0, [1]), (1, [1, 1]), (2, [0, 1, 1]), (4, [0] + [1] * 35 + [0]),
+            (5, [0, 0]), (6, [1, 0, 1]), (8, [1] * 37), (9, [1, 1, 0]))
+    out = []
+    for segs, ncb in ((segs, 11), (((0, [0, 1, 1, 0, 1]),), 1)):
+        cb = np.concatenate([np.full(len(lv), c) for c, lv in segs])
+        live = np.concatenate([lv for _, lv in segs])
+        out.append(((rng.integers(0, nab, cb.size).astype(np.int32),
+                     rng.integers(0, nbb, cb.size).astype(np.int32),
+                     cb.astype(np.int32), live.astype(np.int32)), ncb))
+    return out
+
+
+def f32_errors(fn, a: torch.Tensor, b: torch.Tensor, stream, ncb: int):
+    """Max abs error of ``fn`` (an f32 pair matmul) against the f64
+    product of the same f32 inputs, and that of ``torch.bmm`` in full f32
+    (:func:`pair_matmul_plain`) on the same inputs."""
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("torch.bmm must run in full f32")
+    exact = pair_matmul_plain(a.double(), b.double(), *stream, ncb=ncb)
+    got = fn(a, b, *stream, ncb=ncb)
+    ref = pair_matmul_plain(a, b, *stream, ncb=ncb)
+    return (float((got.double() - exact).abs().max()),
+            float((ref.double() - exact).abs().max()))
+
+
 def _kernel_fn(name: str):
     lib = _build.load("pair_matmul")
     fn = getattr(lib, name)
@@ -98,6 +139,8 @@ def _kernel_fn(name: str):
         if name == "block_gather":
             fn.argtypes = [p, p, p, ctypes.c_longlong, ctypes.c_longlong,
                            ctypes.c_longlong, p]
+        elif name == "pair_matmul_info":
+            fn.argtypes = [ctypes.c_int, p]
         else:
             fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_int, p]
         fn.restype = ctypes.c_int
@@ -118,6 +161,9 @@ def _pair_matmul(a, b, pair_a, pair_b, pair_cb, live, ncb: int, dtype,
     if not all(t.is_contiguous() for t in (a, b, pair_a, pair_b, pair_cb,
                                            live)):
         raise ValueError("operands must be contiguous")
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("a and b must start on a 16-byte boundary: the "
+                         "kernel copies them in 16-byte chunks")
     out = torch.empty((ncb, BS, BS), dtype=dtype, device=a.device)
     if ncb == 0:
         return out
@@ -143,8 +189,9 @@ def pair_matmul_f32(a: torch.Tensor, b: torch.Tensor, pair_a: torch.Tensor,
                     pair_b: torch.Tensor, pair_cb: torch.Tensor,
                     live: torch.Tensor, *, ncb: int) -> torch.Tensor:
     """f32 pair matmul; returns [ncb, 128, 128] f32.  CUDA tensors go
-    through the FFMA kernel (never TF32), CPU tensors through
-    :func:`pair_matmul_plain`."""
+    through the split-TF32 tensor-core kernel (3xTF32: big·big +
+    big·small + small·big of x = big + small, accumulated in f32; not
+    plain TF32), CPU tensors through :func:`pair_matmul_plain`."""
     return _pair_matmul(a, b, pair_a, pair_b, pair_cb, live, ncb,
                         torch.float32, "pair_matmul_f32", pair_matmul_f32)
 
@@ -153,7 +200,7 @@ def pair_matmul_f64(a: torch.Tensor, b: torch.Tensor, pair_a: torch.Tensor,
                     pair_b: torch.Tensor, pair_cb: torch.Tensor,
                     live: torch.Tensor, *, ncb: int) -> torch.Tensor:
     """f64 pair matmul; returns [ncb, 128, 128] f64.  CUDA tensors go
-    through the DFMA kernel, CPU tensors through
+    through the FP64 tensor-core (DMMA) kernel, CPU tensors through
     :func:`pair_matmul_plain`."""
     return _pair_matmul(a, b, pair_a, pair_b, pair_cb, live, ncb,
                         torch.float64, "pair_matmul_f64", pair_matmul_f64)
@@ -161,6 +208,21 @@ def pair_matmul_f64(a: torch.Tensor, b: torch.Tensor, pair_a: torch.Tensor,
 
 pair_matmul_f32.launches = 0
 pair_matmul_f64.launches = 0
+
+KERNEL_INFO = ("registers", "dynamic_smem", "local_bytes", "blocks_per_sm")
+
+
+def kernel_info(dtype) -> dict:
+    """What the CUDA runtime reports of the built pair kernel of ``dtype``
+    (float64 or float32) on the current card: registers, dynamic shared
+    memory bytes, local (stack and spill) bytes and resident blocks per
+    SM."""
+    buf = (ctypes.c_int * len(KERNEL_INFO))()
+    rc = _kernel_fn("pair_matmul_info")(int(dtype == torch.float64),
+                                        ctypes.addressof(buf))
+    if rc != 0:
+        raise DeviceError(f"pair_matmul_info: CUDA error {rc}")
+    return dict(zip(KERNEL_INFO, list(buf)))
 
 
 def block_gather_plain(table: torch.Tensor, idx: torch.Tensor

@@ -122,6 +122,96 @@ def test_pair_matmul_matches_plain(cuda, dtype):
     assert not out[3].any()
 
 
+def boundary_cases(cuda, dtype, rng):
+    """The boundary streams (segments of 1, 2, 3 and 37 pairs, dead pairs
+    at their ends, an all-dead C block, empty C blocks; ncb = 1) with
+    standard normal blocks of ``dtype``."""
+    a = torch.from_numpy(rng.standard_normal((30, 128, 128))).to(dtype)
+    b = torch.from_numpy(rng.standard_normal((20, 128, 128))).to(dtype)
+    return [(a.to(cuda), b.to(cuda),
+              [torch.from_numpy(x).to(cuda) for x in st], ncb)
+             for st, ncb in pm.boundary_streams(rng, 30, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pair_matmul_boundary_streams(cuda, dtype):
+    # f64 within 1e-9 absolute or relative; f32 within 1e-4 of the summed
+    # magnitudes (the same product over |a| and |b|): segments of 37
+    # pairs sum 4736 random-sign terms, whose f32 sums in two orders
+    # differ by more than 1e-4 absolute where they cancel
+    fn = pm.pair_matmul_f64 if dtype == torch.float64 else pm.pair_matmul_f32
+    for a, b, stream, ncb in boundary_cases(cuda, dtype,
+                                            np.random.default_rng(13)):
+        before = fn.launches
+        out = fn(a, b, *stream, ncb=ncb)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        ref = pm.pair_matmul_plain(a, b, *stream, ncb=ncb)
+        if dtype == torch.float64:
+            bound = 1e-9 * ref.abs().clamp(min=1.0)
+        else:
+            bound = 1e-4 * pm.pair_matmul_plain(a.abs(), b.abs(), *stream,
+                                                ncb=ncb).clamp(min=1.0)
+        err = (out - ref).abs()
+        assert bool((err <= bound).all()), float(err.max())
+        cb, live = stream[2], stream[3]
+        empty = torch.ones(ncb, dtype=torch.bool, device=cuda)
+        empty[cb[live != 0].long()] = False
+        assert not out[empty].any()
+
+
+@pytest.mark.cuda
+def test_pair_matmul_f32_exact_on_patterns(cuda):
+    for a, b, stream, ncb in boundary_cases(cuda, torch.float32,
+                                            np.random.default_rng(14)):
+        pa, pb = (a > 0.3).float(), (b > 0.3).float()
+        out = pm.pair_matmul_f32(pa, pb, *stream, ncb=ncb)
+        assert torch.equal(out, pm.pair_matmul_plain(pa, pb, *stream,
+                                                     ncb=ncb))
+
+
+@pytest.mark.cuda
+def test_pair_matmul_f32_error_within_bmm(cuda):
+    # against the f64 product of the same f32 inputs, at most 4 times
+    # the error of torch.bmm in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, b, stream, ncb = boundary_cases(cuda, torch.float32,
+                                       np.random.default_rng(15))[0]
+    k_err, bmm_err = pm.f32_errors(pm.pair_matmul_f32, a, b, stream, ncb)
+    assert 0.0 < k_err <= 4 * bmm_err, (k_err, bmm_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pair_matmul_refuses_misaligned_blocks(cuda, dtype):
+    # a contiguous view one element into its storage passes the shape and
+    # contiguity checks; the kernel's 16-byte copies cannot read it, so
+    # the wrapper raises before it launches
+    fn = pm.pair_matmul_f64 if dtype == torch.float64 else pm.pair_matmul_f32
+    n = 4
+    buf = torch.zeros(n * 128 * 128 + 1, dtype=dtype, device=cuda)
+    off = buf[1:].view(n, 128, 128)
+    ok = torch.zeros((n, 128, 128), dtype=dtype, device=cuda)
+    stream = [torch.tensor(x, dtype=torch.int32, device=cuda)
+              for x in ([0, 1], [2, 3], [0, 0], [1, 1])]
+    before = fn.launches
+    for a, b in ((off, ok), (ok, off)):
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(a, b, *stream, ncb=1)
+    assert fn.launches == before
+    assert not fn(ok, ok, *stream, ncb=1).any()
+
+
+@pytest.mark.cuda
+def test_pair_kernel_info(cuda):
+    # what the runtime reports of the built kernels: the f64 kernel keeps
+    # two blocks resident per SM, and neither spills
+    f64, f32 = pm.kernel_info(torch.float64), pm.kernel_info(torch.float32)
+    assert f64["blocks_per_sm"] >= 2 and f32["blocks_per_sm"] >= 1
+    assert f64["local_bytes"] == 0 and f32["local_bytes"] == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
                                    torch.int32])

@@ -200,3 +200,37 @@ def test_build_reads_the_log_kept_beside_a_library(tmp_path, monkeypatch):
     assert _build.build("planned") == path
     assert _build.build_seconds["planned"] == 0.0
     assert "93 registers" in _build.build_log["planned"]
+
+
+def test_build_names_a_library_after_its_source(tmp_path, monkeypatch):
+    """The library's file name follows the source's bytes: an edited
+    source gets a library of its own and is rebuilt, an unchanged one
+    keeps its name and is loaded as it is."""
+    from mh_spgemm_torch import _build
+    os.makedirs(tmp_path / "csrc")
+    src = tmp_path / "csrc" / "k.cu"
+    monkeypatch.setattr(_build, "_PKG", str(tmp_path))
+    src.write_text("// one\n")
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    src.write_text("// two\n")
+    assert _build.library_path("k") != first
+    assert os.path.basename(first).startswith("libk_")
+
+
+def test_ptxas_kernels_reads_each_entry():
+    from mh_spgemm_torch import _build
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN1a6kernelIdEEv' for "
+        "'sm_90a'",
+        "ptxas info    : Function properties for _ZN1a6kernelIdEEv",
+        "    16 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers, 4096 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN1a6kernelIfEEv' for "
+        "'sm_90a'",
+        "ptxas info    : Used 255 registers"])
+    assert _build.ptxas_kernels(log) == [
+        {"kernel": "_ZN1a6kernelIdEEv", "registers": 128, "smem_bytes": 4096,
+         "stack_bytes": 16, "spill_bytes": 16},
+        {"kernel": "_ZN1a6kernelIfEEv", "registers": 255, "smem_bytes": 0,
+         "stack_bytes": 0, "spill_bytes": 0}]

@@ -5,6 +5,12 @@ same numpy inputs.
 Tolerances:
 - f32 pair matmul: 1e-4 absolute or relative against JAX
   ``pair_matmul_f32`` (both in f32, summed in different orders).
+- The model of the CUDA f32 kernel's split-TF32 arithmetic
+  (:func:`split_tf32_model`): 1e-4 absolute or relative against JAX
+  ``pair_matmul_f32`` (f32 sums in another order, and the dropped
+  small·small terms, each under 2^-22 of |a|·|b|); its max abs error
+  against the f64 product of the same f32 inputs at most 4× that of
+  plain f32 ``torch.bmm``; exact on 0/1 blocks.
 - f64 pair matmul: 1e-9 absolute or relative against JAX
   ``pair_matmul_f64_ozaki`` (its error bound certifies 1e-10 absolute),
   and within 1e-12 of the sum of |a|·|b| products against numpy f64 (the
@@ -106,6 +112,100 @@ def test_f64_matches_ozaki_and_numpy():
         scale[cb[g]] += np.abs(a[pa[g]]) @ np.abs(b[pb[g]])
     assert np.all(np.abs(got - exact) <= 1e-12 * scale)
     assert not got[[1, ncb - 1]].any()
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on the int32 bits: round to 10 explicit
+    mantissa bits, to nearest, ties away from zero."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32_model(a, b, pair_a, pair_b, pair_cb, live, ncb: int):
+    """The CUDA f32 kernel's arithmetic (``csrc/pair_matmul.cu``), in
+    torch on f32 tensors: each operand x is split into big = tf32(x) and
+    small = tf32(x - big); per live pair, in stream order, each 32-deep
+    k-slice sums small·big, big·small and big·big (each 8-deep step of
+    the three a product of its own, added in that order) into a slice
+    tile that is then added to the C block.  What it cannot model is the
+    tensor cores' own rounding inside a step."""
+    def split(x):
+        big = tf32_rna(x)
+        return big, tf32_rna(x - big)
+
+    out = torch.zeros((ncb, BS, BS), dtype=torch.float32)
+    for g in torch.nonzero(live).flatten().tolist():
+        ab, asm = split(a[int(pair_a[g])])
+        bb, bsm = split(b[int(pair_b[g])])
+        for k0 in range(0, BS, 32):
+            part = torch.zeros((BS, BS), dtype=torch.float32)
+            for k in range(k0, k0 + 32, 8):
+                s = slice(k, k + 8)
+                part += asm[:, s] @ bb[s]
+                part += ab[:, s] @ bsm[s]
+                part += ab[:, s] @ bb[s]
+            out[int(pair_cb[g])] += part
+    return out
+
+
+def test_tf32_rounding():
+    one = 1.0
+    x = torch.tensor([one, one + 2**-11, -(one + 2**-11), one + 2**-12,
+                      one + 3 * 2**-12, 3.0, -0.0], dtype=torch.float32)
+    want = [one, one + 2**-10, -(one + 2**-10), one, one + 2**-10, 3.0,
+            -0.0]
+    assert tf32_rna(x).tolist() == want
+    assert torch.equal(tf32_rna(x).view(torch.int32) & 0x1FFF,
+                       torch.zeros(7, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_model_matches_jax(seed):
+    rng = np.random.default_rng(seed)
+    a, b = blocks(rng, 9).astype(np.float32), blocks(rng, 7).astype(np.float32)
+    ncb = 6
+    pa, pb, cb, live = pair_stream(rng, 9, 7, ncb, max_seg=10)
+    got = split_tf32_model(torch.from_numpy(a), torch.from_numpy(b),
+                           *(torch.from_numpy(x) for x in (pa, pb, cb,
+                                                           live)),
+                           ncb).numpy()
+    want = np.asarray(jpg.pair_matmul_f32(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(pa), jnp.asarray(pb),
+        jnp.asarray(cb), jnp.asarray(live), ncb=ncb, interpret=True))
+    named = np.unique(cb)
+    assert close(got[named], want[named], 1e-4)
+    assert not got[[1, ncb - 1]].any() and not got[2].any()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_model_error_within_bmm(seed):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(blocks(rng, 9).astype(np.float32))
+    b = torch.from_numpy(blocks(rng, 7).astype(np.float32))
+    ncb = 6
+    stream = [torch.from_numpy(x) for x in
+              pair_stream(rng, 9, 7, ncb, max_seg=10)]
+    exact = tpm.pair_matmul_plain(a.double(), b.double(), *stream, ncb=ncb)
+    model = split_tf32_model(a, b, *stream, ncb).double()
+    bmm = tpm.pair_matmul_plain(a, b, *stream, ncb=ncb).double()
+    err = float((model - exact).abs().max())
+    assert 0.0 < err <= 4 * float((bmm - exact).abs().max())
+
+
+def test_split_model_exact_on_patterns():
+    rng = np.random.default_rng(4)
+    a = torch.from_numpy((rng.random((12, BS, BS)) < 0.8).astype(np.float32))
+    b = torch.from_numpy((rng.random((10, BS, BS)) < 0.8).astype(np.float32))
+    ncb = 3
+    # C block 0: 40 pairs (sums up to 40 * 128 = 5120), 1: none, 2: three
+    cb = np.array([0] * 40 + [2] * 3, np.int32)
+    live = np.ones(43, bool)
+    live[[0, 39, 41]] = False
+    stream = [torch.from_numpy(x) for x in (
+        rng.integers(0, 12, 43).astype(np.int32),
+        rng.integers(0, 10, 43).astype(np.int32), cb, live)]
+    got = split_tf32_model(a, b, *stream, ncb)
+    assert torch.equal(got, tpm.pair_matmul_plain(a, b, *stream, ncb=ncb))
+    assert float(got[0].max()) > 2**11
 
 
 def test_plain_checks_pair_order():
