@@ -15,12 +15,17 @@
    instructions, beside the registers, dynamic shared memory, local
    bytes and resident blocks per SM the runtime reports; the f64 kernel
    must have DMMA and keep two blocks per SM, the f32 kernel TF32 HMMA,
-   both LDGSTS or UTMALDG (in each one's ``sass`` entry).
+   both LDGSTS or UTMALDG (in each one's ``sass`` entry).  The ESC
+   tail's warp-path kernels (``tail_warp``) must use no local memory and
+   spill nothing.
 3. Kernel phase: ``esc_tail_flat`` against its plain PyTorch version on
-   the card for w2 in {2, 8, 256, 2048, 8192, 32768, 65536}, f64 and
+   the card for w2 in {2, 4, 8, 16, 32, 64, 128, 256, 512, 2048, 8192,
+   32768, 65536} (the warp path up to 256, the tile path from 512, the
+   global path above 8192), f64 and
    f32, on duplicate-heavy, empty and all-same-key segments (keys and
    counts exact, values within 1e-9 (f64) / 1e-4 (f32)
-   absolute-or-relative); the slab form ``esc_tail`` the same way over
+   absolute-or-relative; whether they are bit for bit equal is
+   printed); the slab form ``esc_tail`` the same way over
    the same widths, with row counts under w2 (NaN values and random keys
    past them), empty rows and full rows; both tails also against a
    reference by ``torch.sort`` and ``index_add_`` that shares nothing of
@@ -72,7 +77,10 @@
    warm call runs (windowed, planned or gather) and the slots each tail
    took; then each stage of a warm call timed alone, the extraction by
    the gather and by the copy the plan has (windowed or planned), and
-   the same under ``planned="off"``.
+   each class's tail alone (the ``tail_classes`` line: W, the route
+   taken (the kernel's warp, tile or global path, the direct W = 1 path
+   or the sort tail; the kernel's path as its dispatch reports it), rows,
+   slots, ms and the byte bound), and the same under ``planned="off"``.
    Then the planned-versus-off phase: on each stand-in, cold calls (host
    wall clock, planning included) and warm calls (CUDA events) under the
    default config and under ``planned="off"``, in turns (default, off,
@@ -173,7 +181,7 @@ PROFILE_ATTEMPTS = 8
 # the pair kernels' mangled names hold these (template on the value type)
 PAIR_KERNELS = {"pair_matmul_f64": "pair_matmul_kernelIdE",
                 "pair_matmul_f32": "pair_matmul_kernelIfE"}
-W2S = (2, 8, 256, 2048, 8192, 32768, 65536)
+W2S = (2, 4, 8, 16, 32, 64, 128, 256, 512, 2048, 8192, 32768, 65536)
 MATRICES = ("scircuit", "cage12", "webbase-1M")
 BD_MATRICES = ("pdb1HYS", "pwtk")
 SOURCES = ("esc_tail", "pair_matmul", "ragged_fill", "planned",
@@ -311,8 +319,10 @@ def kernel_phase(torch, et, dev) -> dict:
                                 f"esc_tail_flat w2={w2} {dtype}")
             errs[dtype] = max(errs[dtype], float(err.max()))
             print(f"kernel w2={w2:6d} {str(dtype):14s} slots={k.size:8d} "
+                  f"path={et.kernel_path(w2)} "
                   f"max_abs_err={float(err.max()):.3e} "
-                  f"sort_ref_err={serr:.3e} ok", flush=True)
+                  f"sort_ref_err={serr:.3e} "
+                  f"exact={bool(torch.equal(oV, pV))} ok", flush=True)
     return errs
 
 
@@ -633,12 +643,42 @@ def planned_vs_off_phase(torch, mt, mats: dict, refs: dict, states: dict,
     return off_states
 
 
-def breakdown_phase(bk, states: dict, label: str = "stages") -> dict:
+def tail_classes(et, bk, state) -> list:
+    """Each class's tail of ``state``'s plan timed alone (CUDA events over
+    10 calls on its frontend's output): W, the route (the kernel's path
+    as ``csrc/esc_tail.cu`` dispatches it: ``warp`` / ``tile`` /
+    ``global``; ``direct`` for W = 1; ``sort``), rows, slots, ms and the
+    byte bound (each slot's key and value read once and written once)."""
+    plan = state.plan
+    ops = (state.a_val, state.b_col, state.b_val, state.pairs)
+    out = []
+    for c, d in zip(plan.classes, plan.dev):
+        front = bk.class_front(c, d, *ops)
+        counts = {"direct": 0, "kernel": 0, "sort": 0}
+
+        def tail():
+            return bk.class_tail(c, front, route=state.route, counts=counts)
+
+        tail()
+        route = max(counts, key=counts.get)
+        rows = c.nchunks * c.rb
+        slots = rows * c.W
+        nbytes = slots * (4 + front[1].element_size()) * 2
+        out.append({"W": c.W, "route": (et.kernel_path(c.W)
+                                         if route == "kernel" else route),
+                    "rows": rows, "slots": slots, "ms": cuda_ms(tail, 10),
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+        del front
+    return out
+
+
+def breakdown_phase(et, bk, states: dict, label: str = "stages") -> dict:
     """Device time of a warm call's three stages, each timed alone over
     all classes: the frontends, the tails (the kernels, plus the direct
     W = 1 path and the wide-sort tail) and the extraction, by the static
-    gather and, where the plan has it, by the windowed copy.  Returns
-    the extraction times per matrix."""
+    gather and, where the plan has it, by the windowed copy; then each
+    class's tail alone with its route (``tail_classes``).  Returns the
+    extraction times per matrix."""
     ext_ms = {}
     for name, state in states.items():
         plan = state.plan
@@ -674,6 +714,9 @@ def breakdown_phase(bk, states: dict, label: str = "stages") -> dict:
         ext_ms[name] = row
         print(f"{label} " + json.dumps(row), flush=True)
         del fronts, slabs
+        print("tail_classes " + json.dumps({
+            "matrix": name, "config": label,
+            "classes": tail_classes(et, bk, state)}), flush=True)
     return ext_ms
 
 
@@ -1865,6 +1908,10 @@ def main() -> int:
         clock[0] = now
 
     ptxas = build_phase(_build)
+    warp = [k for k in ptxas["esc_tail"] if "9tail_warp" in k["kernel"]]
+    check(len(warp) == 16 and all(k["spill_bytes"] == 0
+                                  and k["stack_bytes"] == 0 for k in warp),
+          f"the tail's warp path spills or uses local memory: {warp}")
     sass = sass_phase(torch, _build, pm)
     done("build and SASS")
     bd_mats = {name: load_matrix(name) for name in BD_MATRICES}
@@ -1881,8 +1928,8 @@ def main() -> int:
     done("bucketed")
     off_states = planned_vs_off_phase(torch, mt, mats, refs, states, dev)
     done("planned against off")
-    ext_ms = breakdown_phase(bk, states)
-    breakdown_phase(bk, off_states, label="stages_planned_off")
+    ext_ms = breakdown_phase(et, bk, states)
+    breakdown_phase(et, bk, off_states, label="stages_planned_off")
     t = time_kernel(torch, et, bk, off_states[FILL_MATRIX])
     del off_states
     tf = time_fill(torch, rf, bk, states[FILL_MATRIX])

@@ -34,6 +34,7 @@ from ..errors import DeviceError
 
 I32_MAX = 2**31 - 1
 _MAX_W2 = 1 << 16
+_PATHS = ("warp", "tile", "global")
 
 
 def supported_w2(w: int) -> bool:
@@ -42,11 +43,26 @@ def supported_w2(w: int) -> bool:
     return 2 <= w <= _MAX_W2 and (w & (w - 1)) == 0
 
 
+def kernel_path(w2: int) -> str:
+    """The path that the kernel takes for segments of width ``w2``, as
+    ``csrc/esc_tail.cu``'s dispatch decides it (the C entry
+    ``esc_tail_path``; builds the library, so it needs nvcc):
+    ``"warp"`` (a tile in each warp's registers), ``"tile"`` (a block's
+    shared memory) or ``"global"`` (scratch in device memory)."""
+    fn = _build.load("esc_tail").esc_tail_path
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    path = fn(w2)
+    if path < 0:
+        raise ValueError(f"w2={w2}: no kernel path")
+    return _PATHS[path]
+
+
 def _tail_plain(K: torch.Tensor, V: torch.Tensor):
     """The tail on ``[segments, w2]`` in torch ops, step for step the
-    kernel's: the same bitonic network (ties never swap), then the same
-    Hillis-Steele passes, so values are added in the kernel's order (and
-    the TPU kernel's).  Returns (packed keys, packed values, counts)."""
+    kernel's (each of its three paths): the same bitonic network (ties
+    never swap), then the same Hillis-Steele passes, so values are added
+    in the kernel's order (and the TPU kernel's).  Returns (packed keys,
+    packed values, counts)."""
     S, w2 = K.shape
     dev = K.device
     idx = torch.arange(w2, device=dev)
