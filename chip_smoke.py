@@ -87,6 +87,25 @@
    off, default), every C against the oracle; then one warm call of each
    under ``torch.profiler``: its kernels by name, their device time and
    the card's idle share against the faster warm time.
+   DeviceCSR-engine phase (after the planned-versus-off phase, on the
+   same three stand-ins at full size): ``spgemm_host(mode="esc")``, then
+   ``spgemm`` on padded device operands (``CSR.device(pad=True)``) under
+   ``mode="esc"`` on all three and ``mode="masked"`` (the
+   product-granularity pipeline) on scircuit and webbase-1M, cold (host
+   wall clock) and warm through a reused ``SpGEMMPlan`` (the seven
+   phases of one fenced warm call, and the mean of 10 calls queued under
+   ``no_fence`` between CUDA events); ``spgemm(dA, dA)`` under
+   ``DEFAULT_CONFIG`` (ESC) on scircuit; on cage12 (29,246,941 products)
+   the masked pipeline must raise its ``masked_max_products`` budget
+   ``SpGEMMError``.  Every C must equal the oracle within 1e-9.  Then
+   ESC against the bucketed engine's warm call in turns (esc, bucketed,
+   bucketed, esc, both queued under ``no_fence``), one warm ESC call on
+   cage12 under ``torch.profiler`` (kernels, busy ms, idle share), and
+   ``spgemm_dist(engine="esc")`` on eight shards of the card: scircuit
+   under ``replicate``, ``allgather`` and ``ragged``, cage12 under
+   ``ragged``, each cold, warm through its state and its shard program
+   alone, against the oracle.  These engines are torch ops, so the
+   phase launches none of the nine kernels (their counts are printed).
 5. Forced-fill phase on cage12 (``dma_fill="on"``): its W=256 class must
    run the fill frontend, C must equal the oracle, and the
    ``ragged_fill`` and ``esc_tail`` launch counts, set to 0 before, must
@@ -122,7 +141,8 @@
    stand-ins' D=8 exchange shapes beside its plain version, the stack
    yardstick and its byte bound.  Then ``python -m
    mh_spgemm_torch.bench.dist_bench scircuit --max-devices 8`` in a
-   subprocess must exit 0, pass every check and print nothing of JAX.
+   subprocess, with ``--engine bucketed`` and with ``--engine esc``, must
+   exit 0, pass every check and print nothing of JAX.
 9. Kernel timing (CUDA events, warm, many launches), each kernel beside
    its plain version, one PyTorch call computing the same function and
    its bound: ``esc_tail_flat`` on cage12's W=256 class under
@@ -146,8 +166,9 @@
 10. CLI phase: ``python -m mh_spgemm_torch pdb1HYS --check --stats --json
    --iters 3`` in a subprocess must exit 0, pass its check on the
    block-dense engine, and print nothing of JAX; ``python -m
-   mh_spgemm_torch scircuit --mode masked --check --iters 2`` must exit
-   0 and pass.
+   mh_spgemm_torch scircuit --mode masked --check --iters 2`` and
+   ``python -m mh_spgemm_torch scircuit --mode esc --check --iters 3``
+   must exit 0 and pass.
 11. Prints ``{"kernels": [...]}`` (all nine kernels), the card's name and
    power limit, and,
    as the last line, ``{"ok": true, "device": {...}}``.
@@ -160,6 +181,7 @@ where CUDA is not available.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -194,6 +216,14 @@ FILL_MATRIX = "cage12"
 WARM_CALLS = 20
 BD_WARM_CALLS = 10
 DIST_WARM_CALLS = 5
+# the DeviceCSR-level engines: masked stand-ins (cage12's 29,246,941
+# products exceed masked_max_products and must raise), warm calls per
+# timing, and the spgemm_dist(engine="esc") calls on DIST_SHARDS shards
+DEVICE_MASKED = ("scircuit", "webbase-1M")
+DEVICE_BUDGET_MATRIX = "cage12"
+DEVICE_WARM_CALLS = 10
+DEVICE_DIST_CALLS = (("scircuit", "replicate"), ("scircuit", "allgather"),
+                     ("scircuit", "ragged"), ("cage12", "ragged"))
 DIST_SHARDS = 8
 HALO_DS = (1, 2, 4, 8)
 HALO_VRS = (1, 3, 336, 5376)
@@ -1132,6 +1162,168 @@ def masked_phase(torch, mt, rf, mats: dict, refs: dict, dev) -> dict:
     return launches
 
 
+def device_engine_phase(torch, mt, et, rf, pn, rfx, pm, mats: dict,
+                        refs: dict, states: dict, dev) -> dict:
+    """The DeviceCSR-level engines on the full-size stand-ins: per
+    matrix, spgemm_host(mode="esc"), then spgemm on padded device
+    operands under mode="esc" (and "masked" on DEVICE_MASKED), cold (host
+    wall clock, readbacks included) and warm through the plan (the seven
+    phases of one fenced warm call; the mean of DEVICE_WARM_CALLS calls
+    queued under no_fence between CUDA events); spgemm(dA, dA) under
+    DEFAULT_CONFIG on scircuit; the masked budget SpGEMMError on
+    DEVICE_BUDGET_MATRIX.  Every C against the oracle.  Then ESC against
+    the bucketed engine's warm call (the main path's states), in turns
+    (esc, bucketed, bucketed, esc), and one profiled warm ESC call on
+    cage12.  These engines are torch ops: the nine kernels' counts are
+    set to 0 before each matrix's engine calls and read before its turns
+    (which launch the bucketed engine's kernels), and their sum is
+    printed."""
+    from mh_spgemm_torch.pipeline import no_fence, spgemm_bucketed
+    counted = (et.esc_tail_flat, et.esc_tail, rf.ragged_fill, pn.pgather,
+               pn.proute, rfx.halo_exchange, pm.pair_matmul_f64,
+               pm.pair_matmul_f32, pm.block_gather)
+    launches = dict.fromkeys((fn.__name__ for fn in counted), 0)
+    rows = {}
+    for name in MATRICES:
+        for fn in counted:
+            fn.launches = 0
+        A, ref = mats[name], refs[name]
+        intprod = A.intprod(A)
+        t0 = time.perf_counter()
+        C = mt.spgemm_host(A, config=mt.SpGEMMConfig(mode="esc"),
+                           device=dev)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        check(C.equals(ref, tol=1e-9), f"{name}: spgemm_host(esc) != "
+              "oracle")
+        del C
+        dA = A.device(torch.float64, pad=True, device=dev)
+        modes = ("esc", "masked") if name in DEVICE_MASKED else ("esc",)
+        row = {"matrix": name, "intprod": intprod, "nnz_c": ref.nnz,
+               "m_pad": dA.m_pad, "nnz_pad": dA.nnz_pad,
+               "host_esc_ms": host_ms}
+        for mode in modes:
+            cfg = mt.SpGEMMConfig(mode=mode)
+            plan = mt.make_plan(dA, dA)
+            torch.cuda.reset_peak_memory_stats()
+            cold_t = mt.Timing()
+            t0 = time.perf_counter()
+            Cd = mt.spgemm(dA, dA, config=cfg, timing=cold_t, plan=plan)
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            check(Cd.host().equals(ref, tol=1e-9), f"{name} {mode}: cold "
+                  "!= oracle")
+            warm_t = mt.Timing()
+            Cd = mt.spgemm(dA, dA, config=cfg, timing=warm_t, plan=plan)
+            check(Cd.host().equals(ref, tol=1e-9), f"{name} {mode}: warm "
+                  "!= oracle")
+            out = {}
+
+            def warm():
+                out["C"] = mt.spgemm(dA, dA, config=cfg, plan=plan)
+
+            with no_fence():
+                ms = cuda_ms(warm, DEVICE_WARM_CALLS, warmup=1)
+            check(out["C"].host().equals(ref, tol=1e-9),
+                  f"{name} {mode}: queued warm != oracle")
+            row[mode] = {
+                "cold_ms": cold_ms, "warm_ms": ms,
+                "gflops": mt.gflops(intprod, ms),
+                "cold_phases_ms": cold_t.as_dict(),
+                "warm_phases_ms": warm_t.as_dict(),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                "plan": dataclasses.asdict(plan)}
+            del Cd, out
+        if name == "scircuit":
+            Cd = mt.spgemm(dA, dA)                   # DEFAULT_CONFIG: ESC
+            check(Cd.host().equals(ref, tol=1e-9), "scircuit: spgemm "
+                  "under DEFAULT_CONFIG != oracle")
+            del Cd
+        if name == DEVICE_BUDGET_MATRIX:
+            try:
+                mt.spgemm(dA, dA, config=mt.SpGEMMConfig(mode="masked"))
+                raised = None
+            except mt.SpGEMMError as exc:
+                raised = str(exc)
+            check(raised is not None and "budget" in raised,
+                  f"{name}: the masked pipeline did not raise its budget "
+                  f"error ({raised})")
+            row["masked"] = {"raised": raised}
+        for fn in counted:
+            launches[fn.__name__] += fn.launches
+        # ESC against the bucketed engine's warm call, in turns
+        cfg = mt.SpGEMMConfig(mode="esc")
+        plan = mt.make_plan(dA, dA)
+        mt.spgemm(dA, dA, config=cfg, plan=plan)
+        st = states[name]
+        calls = {"esc": lambda: mt.spgemm(dA, dA, config=cfg, plan=plan),
+                 "bucketed": lambda: spgemm_bucketed(A, A, state=st)}
+        turns = {"esc": [], "bucketed": []}
+        with no_fence():
+            for which in ("esc", "bucketed", "bucketed", "esc"):
+                turns[which].append(cuda_ms(calls[which],
+                                            DEVICE_WARM_CALLS, warmup=1))
+        row["turns_warm_ms"] = turns
+        if name == "cage12":
+            esc_ms = min(turns["esc"])
+            try:
+                prof = device_profile(torch, calls["esc"], reps=3,
+                                      whole=False)
+                row["esc_profile"] = {
+                    "warm_ms": esc_ms, "busy_ms": prof["busy_ms"],
+                    "kernels": prof["kernels"],
+                    "idle_share": 1.0 - prof["busy_ms"] / esc_ms,
+                    "top": dict(list(prof["by_name"].items())[:10]),
+                    "partial": prof["partial"],
+                    "profile_attempts": prof["attempts"]}
+            except Exception as exc:   # the measurement only, not a check
+                row["esc_profile"] = (f"not measured ({type(exc).__name__}"
+                                      f": {exc})")
+        print("device_engines " + json.dumps(row), flush=True)
+        rows[name] = row
+        del dA
+    print("device_engines launches " + json.dumps(launches), flush=True)
+    return rows
+
+
+def device_dist_phase(torch, mt, mats: dict, refs: dict) -> list:
+    """spgemm_dist(engine="esc") on DIST_SHARDS shards of the card for
+    each of DEVICE_DIST_CALLS: cold (host wall clock), then warm through
+    the state (CUDA events: a whole call, host assembly included, and the
+    shard program alone); every C against the oracle."""
+    from mh_spgemm_torch.parallel.mesh import make_row_mesh
+    from mh_spgemm_torch.parallel.spgemm_dist import spgemm_dist
+    mesh = make_row_mesh(DIST_SHARDS)
+    rows = []
+    for name, strategy in DEVICE_DIST_CALLS:
+        A, ref = mats[name], refs[name]
+        st = {}
+        t0 = time.perf_counter()
+        C = spgemm_dist(A, None, mesh, b_strategy=strategy, state=st,
+                        engine="esc")
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        label = f"{name} esc {strategy}"
+        check(C.equals(ref, tol=1e-9), f"dist {label}: cold != oracle")
+        out = {}
+
+        def warm():
+            out["C"] = spgemm_dist(A, None, mesh, b_strategy=strategy,
+                                   state=st, engine="esc")
+
+        warm_ms = cuda_ms(warm, DIST_WARM_CALLS, warmup=1)
+        check(out["C"].equals(ref, tol=1e-9), f"dist {label}: warm != "
+              "oracle")
+        device_ms = cuda_ms(lambda: st["fn"](*st["args"]), DIST_WARM_CALLS,
+                            warmup=1)
+        row = {"matrix": name, "D": mesh.size, "engine": "esc",
+               "strategy": strategy, "per_shard_products": st["total"],
+               "plan_s": st["plan_s"], "cold_ms": cold_ms,
+               "warm_ms": warm_ms, "device_ms": device_ms,
+               "exchanged_words": st["exchanged_words"], "nnz_c": ref.nnz}
+        print("dist_esc " + json.dumps(row), flush=True)
+        rows.append(row)
+        del C, out, st
+    return rows
+
+
 def halo_kernel_phase(torch, rfx, dev) -> int:
     """halo_exchange against its plain version and against the yardstick
     ``torch.stack(sends).transpose(0, 1)`` for D in HALO_DS and vr in
@@ -1403,17 +1595,18 @@ def time_halo(torch, rfx, states: dict) -> dict:
     return res
 
 
-def dist_bench_phase() -> dict:
-    """dist_bench on scircuit with --max-devices 8 in a subprocess: exit
-    0, every check passes, nothing of JAX in its output."""
+def dist_bench_phase(engine: str = "bucketed") -> dict:
+    """dist_bench on scircuit with --max-devices 8 and ``engine`` in a
+    subprocess: exit 0, every check passes, nothing of JAX in its
+    output."""
     root = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "mh_spgemm_torch.bench.dist_bench",
            "scircuit", "--strategy", "ragged", "--max-devices",
-           str(DIST_SHARDS), "--iters", "2"]
+           str(DIST_SHARDS), "--iters", "2", "--engine", engine]
     proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
                           timeout=600)
     for line in proc.stdout.splitlines():
-        print("dist_bench", line)
+        print(f"dist_bench engine={engine}", line)
     check(proc.returncode == 0, f"dist_bench exited {proc.returncode}: "
           f"{proc.stderr[-2000:]}")
     res = json.loads([ln for ln in proc.stdout.splitlines()
@@ -1871,6 +2064,19 @@ def cli_phase() -> dict:
           f"{proc.stderr[-2000:]}")
     check("pass" in proc.stdout.splitlines(),
           "the masked CLI's check did not pass")
+    cmd = [sys.executable, "-m", "mh_spgemm_torch", "scircuit", "--mode",
+           "esc", "--check", "--iters", "3"]
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    for line in proc.stdout.splitlines():
+        print("cli-esc", line)
+    check(proc.returncode == 0, f"ESC CLI exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    check("pass" in proc.stdout.splitlines(),
+          "the ESC CLI's check did not pass")
+    text = (proc.stdout + proc.stderr).lower()
+    check("jax" not in text and "mh_spgemm_tpu" not in text,
+          "the ESC CLI's output mentions JAX")
     return res
 
 
@@ -1928,6 +2134,10 @@ def main() -> int:
     done("bucketed")
     off_states = planned_vs_off_phase(torch, mt, mats, refs, states, dev)
     done("planned against off")
+    dev_rows = device_engine_phase(torch, mt, et, rf, pn, rfx, pm, mats,
+                                   refs, states, dev)
+    dev_dist = device_dist_phase(torch, mt, mats, refs)
+    done("DeviceCSR engines and spgemm_dist(engine='esc')")
     ext_ms = breakdown_phase(et, bk, states)
     breakdown_phase(et, bk, off_states, label="stages_planned_off")
     t = time_kernel(torch, et, bk, off_states[FILL_MATRIX])
@@ -1958,6 +2168,7 @@ def main() -> int:
     del mats, refs, dist_states
     done("distributed and halo_exchange timing")
     db = dist_bench_phase()
+    db_esc = dist_bench_phase("esc")
     done("dist_bench")
     cli = cli_phase()
     done("cli")
@@ -2085,6 +2296,15 @@ def main() -> int:
         k.setdefault("ptxas", ptxas[src])
     print(json.dumps({"cli_gflops": cli["gflops"],
                       "dist_bench": db["devices"],
+                      "dist_bench_esc": db_esc["devices"],
+                      "device_engines_warm_ms": {
+                          name: {m: row[m]["warm_ms"] for m in
+                                 ("esc", "masked") if "warm_ms" in
+                                 row.get(m, {})}
+                          for name, row in dev_rows.items()},
+                      "dist_esc_warm_ms": {
+                          f"{r['matrix']} {r['strategy']}": r["warm_ms"]
+                          for r in dev_dist},
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps(kernels))
     print(smi)

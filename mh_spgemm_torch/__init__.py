@@ -20,7 +20,14 @@ tile bitmap, then the numeric stage.  Both engines' extraction copies
 long rows into the CSR arrays with ``ragged_fill`` where its cost model
 says so.
 
-``spgemm_dist`` runs the bucketed engine over a mesh of shards
+At the level of device operands (``CSR.device``), ``spgemm`` with a
+reusable ``SpGEMMPlan`` (``make_plan``) runs the paper's pipeline at
+product granularity (``mode="masked"``) or the fused
+expand-sort-compress engine (``mode="esc"``, and every other mode), in
+torch ops with the reference's seven-phase accounting.
+
+``spgemm_dist`` runs the bucketed engine (or, with ``engine="esc"``, the
+fused ESC engine) over a mesh of shards
 (``make_row_mesh``, ``make_grid_mesh``; shards may share a card): B
 replicated, gathered, fetched row by row as each shard's A block needs it
 (``ragged``, whose exchange under ``comm_backend="pallas"`` is the
@@ -43,16 +50,17 @@ from .errors import (DeviceError, MatrixFormatError, ShapeMismatchError,
 from .io.mmio import extract_matrix_name, read_mtx, write_mtx
 from .parallel.mesh import make_grid_mesh, make_row_mesh
 from .parallel.spgemm_dist import spgemm_dist
-from .pipeline import (choose_engine, prepare_blockdense_state,
-                       prepare_masked_state, spgemm_blockdense,
-                       spgemm_bucketed, spgemm_chunked, spgemm_host,
-                       spgemm_masked)
+from .pipeline import (SpGEMMPlan, choose_engine, make_plan,
+                       prepare_blockdense_state, prepare_masked_state,
+                       spgemm, spgemm_blockdense, spgemm_bucketed,
+                       spgemm_chunked, spgemm_host, spgemm_masked)
 from .timing import Timing, gflops
 
 __version__ = "0.1.0"
 
 __all__ = [
     "CSR", "DeviceCSR", "SpGEMMConfig", "DEFAULT_CONFIG",
+    "SpGEMMPlan", "make_plan", "spgemm",
     "spgemm_bucketed", "spgemm_chunked", "spgemm_host",
     "spgemm_blockdense", "prepare_blockdense_state", "choose_engine",
     "spgemm_masked", "prepare_masked_state",

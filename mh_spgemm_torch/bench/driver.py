@@ -17,6 +17,7 @@ protocol) on one CUDA card.
     python -m mh_spgemm_torch pdb1HYS --check --stats
     python -m mh_spgemm_torch matrix.mtx --device cpu --mode blockdense
     python -m mh_spgemm_torch scircuit --mode masked --check
+    python -m mh_spgemm_torch scircuit --mode esc --check
 """
 
 from __future__ import annotations
@@ -100,14 +101,27 @@ def run_matrix(A: CSR, name: str, config: SpGEMMConfig,
             mode = pl.choose_engine(A, B, config, device=dev)
             if verbose:
                 print(f"auto engine: {mode}")
-        run = {"bucketed": pl.spgemm_bucketed,
-               "blockdense": pl.spgemm_blockdense,
-               "masked": pl.spgemm_masked}[mode]
+        if mode == "esc":
+            # device operands and a plan that knows intprod: the timed
+            # calls read only nnz(C) back, on the first warm-up
+            dA = A.device(config.vdtype, pad=True, device=dev)
+            dB = B.device(config.vdtype, pad=True, device=dev) \
+                if B is not A else dA
+            plan = pl.make_plan(dA, dB)
+            plan.intprod = intprod
 
-        def one(t):
-            nonlocal C, state
-            C, state = run(A, B, config=config, timing=t, state=state,
-                           device=dev)
+            def one(t):
+                nonlocal C
+                C = pl.spgemm(dA, dB, config=config, timing=t, plan=plan)
+        else:
+            run = {"bucketed": pl.spgemm_bucketed,
+                   "blockdense": pl.spgemm_blockdense,
+                   "masked": pl.spgemm_masked}[mode]
+
+            def one(t):
+                nonlocal C, state
+                C, state = run(A, B, config=config, timing=t, state=state,
+                               device=dev)
 
         for _ in range(warmup):
             one(Timing())
@@ -149,9 +163,11 @@ def run_matrix(A: CSR, name: str, config: SpGEMMConfig,
     res = BenchResult(name=name, m=A.M, n=B.N, nnz_a=A.nnz, nnz_c=nnz_c,
                       intprod=intprod, timing=bench_timing, gflops=gf,
                       nnzc_per_s=nnzc_rate)
-    res.stats = state.plan.stats()
-    if intprod and total_ms > 0:
-        res.stats["ns_per_product"] = round(total_ms * 1e6 / intprod, 2)
+    if state is not None:               # the ESC engine has no plan stats
+        res.stats = state.plan.stats()
+        if intprod and total_ms > 0:
+            res.stats["ns_per_product"] = round(total_ms * 1e6 / intprod,
+                                                2)
     if check:
         C_ref, oracle_ms = timed_oracle_spgemm(A, B)
         res.oracle_ms = oracle_ms

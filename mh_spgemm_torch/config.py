@@ -4,13 +4,15 @@
 config written for one package reads the same in the other.  The port
 runs the bucketed engine (precomputed-slot, planned, fill and gather
 frontends), the block-dense engine, ``mode="auto"`` choosing between
-them, the class-based masked engine (``mode="masked"``), and the
-distributed layer's ``comm_backend`` ("xla" or "pallas", read by
-``spgemm_dist``);
+them, the class-based masked engine (``mode="masked"``), the fused ESC
+engine (``mode="esc"``, and every mode of ``pipeline.spgemm`` on device
+operands), and the distributed layer's ``comm_backend`` ("xla" or
+"pallas", read by ``spgemm_dist``);
 :func:`check_supported` resolves every setting to what the port can run
-and raises on settings whose kernels or engines are not ported yet,
-naming the ROADMAP item that ports them.  :func:`fill_mode` and
-:func:`planned_mode` resolve ``dma_fill`` and ``planned`` for a device.
+and raises on the JAX package's Pallas-interpreter and TPU-only
+transport settings, which have no counterpart on the card.
+:func:`fill_mode` and :func:`planned_mode` resolve ``dma_fill`` and
+``planned`` for a device.
 """
 
 from __future__ import annotations
@@ -63,11 +65,7 @@ class SpGEMMConfig:
 
 DEFAULT_CONFIG = SpGEMMConfig()
 
-_MODES = ("auto", "bucketed", "blockdense", "masked")
-_MODE_ITEMS = {
-    "esc": "ROADMAP Queue 1 item 1 (the DeviceCSR-level engines: "
-           "symbolic, numeric, binning and mode='esc')",
-}
+_MODES = ("auto", "bucketed", "blockdense", "masked", "esc")
 # Pallas-interpreter settings: in the port "on" forces the path on any
 # device, and CPU tensors take the plain versions
 _INTERPRET = ("dma_fill", "planned", "ozaki", "esc_tail")
@@ -81,14 +79,10 @@ def check_supported(config: SpGEMMConfig) -> str:
     ``"sort"`` (the sort tail in torch ops, ``esc_tail="off"``).
     ``ozaki`` "auto" and "on" send block-dense f64 through the native-f64
     pair kernel, "off" through the gather + batched-matmul route.  Raises
-    ``NotImplementedError`` naming the ROADMAP item for settings the
-    port does not run yet."""
+    ``NotImplementedError`` for the Pallas-interpreter and TPU-only
+    settings, ``ValueError`` for unknown ones."""
     config.vdtype                               # validates value_dtype
     if config.mode not in _MODES:
-        if config.mode in _MODE_ITEMS:
-            raise NotImplementedError(
-                f"mode={config.mode!r} is not ported yet: "
-                f"{_MODE_ITEMS[config.mode]}")
         raise ValueError(f"unknown mode {config.mode!r}")
     for name in _INTERPRET:
         v = getattr(config, name)

@@ -1,8 +1,9 @@
 """CSR matrix containers of the PyTorch port.
 
 :class:`CSR` is the host matrix (numpy arrays), with the same
-construction, transpose and comparison as ``mh_spgemm_tpu.csr.CSR``;
-:class:`DeviceCSR` holds torch tensors on an explicit device.
+construction, transpose, comparison and upload (:meth:`CSR.device`) as
+``mh_spgemm_tpu.csr.CSR``; :class:`DeviceCSR` holds torch tensors on an
+explicit device.
 """
 
 from __future__ import annotations
@@ -82,6 +83,21 @@ class CSR:
                 MatrixFormatError, "col/val length must equal ptr[-1]")
         return out
 
+    @classmethod
+    def from_scipy(cls, mat, is_symmetric: bool = False) -> "CSR":
+        m = mat.tocsr()
+        m.sort_indices()
+        return cls(M=m.shape[0], N=m.shape[1],
+                   ptr=m.indptr.astype(np.int32),
+                   col=m.indices.astype(np.int32),
+                   val=np.asarray(m.data),
+                   is_symmetric=is_symmetric)
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+        return sp.csr_matrix((self.val, self.col, self.ptr),
+                             shape=(self.M, self.N))
+
     # -- transforms --------------------------------------------------------
 
     def transpose(self) -> "CSR":
@@ -101,7 +117,46 @@ class CSR:
         return CSR(M=self.N, N=self.M, ptr=tptr, col=tcol, val=tval,
                    is_symmetric=self.is_symmetric)
 
+    def copy(self) -> "CSR":
+        return CSR(M=self.M, N=self.N, ptr=self.ptr.copy(),
+                   col=self.col.copy(), val=self.val.copy(),
+                   is_symmetric=self.is_symmetric)
+
+    def device(self, value_dtype: Optional[torch.dtype] = None,
+               pad: bool = False, device=None) -> "DeviceCSR":
+        """Upload to ``device`` (the card when None; raises without CUDA,
+        ``pipeline.resolve_device``) as a :class:`DeviceCSR`, values in
+        ``value_dtype`` (a torch dtype; default the host values' type).
+
+        ``pad=True`` quantizes the extents to the grid of
+        ``ops/shapes.quantize``: padded rows are empty (``ptr`` repeats
+        its last value) and padded nonzeros reference column 0 but lie
+        past ``ptr[M]``, so no per-row reduction sees them."""
+        from .ops.shapes import pad1, quantize
+        from .pipeline import resolve_device
+
+        dev = resolve_device(device)
+        ptr, col, val = self.ptr, self.col, self.val
+        if pad:
+            m_pad = quantize(self.M)
+            nnz_pad = quantize(max(1, self.nnz))
+            ptr = pad1(ptr, m_pad + 1, fill=ptr[-1])
+            col = pad1(col, nnz_pad, fill=0)
+            val = pad1(val, nnz_pad, fill=0)
+        val = torch.from_numpy(np.ascontiguousarray(val)).to(dev)
+        return DeviceCSR(
+            M=self.M, N=self.N,
+            ptr=torch.from_numpy(np.ascontiguousarray(
+                ptr, dtype=np.int32)).to(dev),
+            col=torch.from_numpy(np.ascontiguousarray(
+                col, dtype=np.int32)).to(dev),
+            val=val.to(value_dtype) if value_dtype is not None else val,
+            nnz_true=self.nnz)
+
     # -- analysis ----------------------------------------------------------
+
+    def row_nnz(self) -> np.ndarray:
+        return np.diff(self.ptr)
 
     def intprod(self, B: "CSR") -> int:
         """Intermediate-product count Sigma_i nnz(B[A.col[i]]); a SpGEMM
@@ -190,6 +245,16 @@ class DeviceCSR:
     def nnz(self) -> int:
         if self.nnz_true is not None:
             return self.nnz_true
+        return int(self.col.shape[0])
+
+    @property
+    def m_pad(self) -> int:
+        """Padded row count: the extent of ``ptr`` minus one."""
+        return int(self.ptr.shape[0]) - 1
+
+    @property
+    def nnz_pad(self) -> int:
+        """Padded nonzero count: the extent of ``col`` / ``val``."""
         return int(self.col.shape[0])
 
     @property

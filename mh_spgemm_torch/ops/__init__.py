@@ -1,1 +1,3 @@
-"""Device operators of the PyTorch port (bucketed engine, ESC tail)."""
+"""Device operators of the PyTorch port: the bucketed and block-dense
+engines, the masked classes, the kernels' wrappers, and the DeviceCSR-level
+stages (expand, symbolic, numeric, binning)."""

@@ -12,7 +12,8 @@ devices.  ``spgemm_dist`` runs the shards' stages one after another
 the collectives between stages.
 
 ``init_multihost`` (a multi-process runtime over several hosts) is not
-ported (ROADMAP Queue 1 item 10).
+ported (ROADMAP Queue 1 item 3, multi-process, multi-host and
+multi-card meshes).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Distributed SpGEMM: row-partitioned C = A @ B over a mesh of shards —
 the port of ``mh_spgemm_tpu/parallel/spgemm_dist.py`` (its bucketed
-engine).
+engine, and the flat ESC engine of ``engine="esc"``).
 
 A and C are row-partitioned over the ``rows`` axis (work-balanced: equal
 intermediate products per shard).  B is replicated, row-sharded and
@@ -11,7 +11,10 @@ local-only and halo rows), or block-partitioned over a rows x cols grid
 (``grid2d``).  Each shard runs the bucketed engine (gather or fill
 frontend, the ESC tail, the extraction) on its row block under class
 plans that share one layout over the mesh (``plan_buckets_sharded``);
-the host trims and concatenates the shards' capacity blocks.
+the host trims and concatenates the shards' capacity blocks.  Under
+``engine="esc"`` A is split into equal row blocks, and each shard runs
+the fused expand-sort-compress engine (``ops/numeric.esc_segments``) on
+B replicated, gathered or ragged-fetched.
 
 Execution is bulk-synchronous, what ``shard_map`` amounts to on a
 virtual mesh: each stage runs shard by shard in one process, and the
@@ -39,6 +42,7 @@ from ..config import DEFAULT_CONFIG, SpGEMMConfig, check_supported, fill_mode
 from ..csr import CSR
 from ..errors import ShapeMismatchError, SpGEMMError, require
 from ..ops import bucketed as bucketed_ops
+from ..ops import numeric as numeric_ops
 from ..ops import remote_fetch
 from ..ops.shapes import quantize
 from ..pipeline import _NP_DTYPES
@@ -433,17 +437,18 @@ def spgemm_dist(A: CSR, B: Optional[CSR], mesh: Mesh,
     planning seconds), ``exchanged_words`` (words the shards receive in
     one call's collectives, a shard's own block included) and ``plans``.
     A shard plan past int32 indexing (a ``ValueError``) falls back to
-    row-chunked execution.  ``engine`` must be ``"bucketed"``: the flat
-    ESC engine is not ported."""
+    row-chunked execution.
+
+    ``engine="esc"`` runs the flat expand-sort-compress engine on every
+    shard instead (:func:`_spgemm_dist_esc`; ``replicate``,
+    ``allgather`` and ``ragged``), the robust fallback and differential
+    check of the bucketed path."""
     route = check_supported(config)
     if B is None:
         B = A.transpose() if (config.aat and not A.is_symmetric) else A
     require(A.N == B.M, ShapeMismatchError, "A.N must equal B.M")
-    if engine == "esc":
-        raise NotImplementedError(
-            "engine='esc' is not ported yet: ROADMAP Queue 1 item 9 (the "
-            "DeviceCSR-level engines: expand, symbolic, seg_scan)")
-    require(engine == "bucketed", SpGEMMError, f"unknown engine {engine!r}")
+    require(engine in ("bucketed", "esc"), SpGEMMError,
+            f"unknown engine {engine!r}")
 
     if state is not None and state.get("fn") is not None:
         # warm state: skip planning and upload, rerun the shard program
@@ -453,6 +458,8 @@ def spgemm_dist(A: CSR, B: Optional[CSR], mesh: Mesh,
             return _assemble2d(A, B, Dr, Dc, outs, state["bounds"])
         return _assemble(A, B, outs, state["bounds"])
 
+    if engine == "esc":
+        return _spgemm_dist_esc(A, B, mesh, config, b_strategy, state)
     try:
         if b_strategy == "grid2d":
             return _spgemm_dist_grid2d(A, B, mesh, config, route, state)
@@ -464,6 +471,119 @@ def spgemm_dist(A: CSR, B: Optional[CSR], mesh: Mesh,
         # a shard's padded slab overflowed int32: split into row chunks,
         # each chunk re-partitioned over the whole mesh
         return _dist_chunked(A, B, mesh, config, b_strategy)
+
+
+def _shard_esc_kernel(a_ptr, a_col, a_val, a_nnz, b_lens_g, b_starts_g,
+                      b_col, b_val, *, total: int, max_group: int):
+    """One shard's fused ESC SpGEMM on its row block (the port of
+    ``_shard_esc_kernel``, ``spgemm_dist.py:133``).  ``b_lens_g`` /
+    ``b_starts_g`` describe every B row that ``a_col`` names as a segment
+    of ``b_col`` / ``b_val`` (replicated CSR, gathered blocks or halo
+    payload).  Returns (crow [R], col [total], val [total], nnz) on the
+    shard's device."""
+    ac = a_col.long()
+    res = numeric_ops.esc_segments(a_ptr, a_val, b_starts_g[ac],
+                                   b_lens_g[ac], a_nnz, b_col, b_val,
+                                   total, total, max_group)
+    return res.crow_nnz, res.col_cap, res.val_cap, res.nnz_total
+
+
+def _spgemm_dist_esc(A: CSR, B: CSR, mesh: Mesh, config: SpGEMMConfig,
+                     b_strategy: str, state: Optional[dict]) -> CSR:
+    """The flat ESC engine over the mesh (``spgemm_dist.py:384-513``): an
+    equal-row partition of A, B replicated, gathered or ragged-fetched,
+    and every shard's ESC at the largest shard's product count.  The
+    ragged exchange is the torch-copy ``all_to_all`` whatever
+    ``comm_backend`` says, as the JAX package's ESC branch always uses
+    ``lax.all_to_all``."""
+    t0 = time.perf_counter()
+    D = mesh.size
+    devs = list(mesh.devices)
+    np_dt = _NP_DTYPES[config.vdtype]
+    vwords = 2 if np_dt == np.float64 else 1
+    part = partition_rows(A, D, value_dtype=np_dt)
+    R = part.rows_per_shard
+    blens = np.diff(B.ptr).astype(np.int64)
+    per_nnz = blens[A.col]
+    caps = []
+    for d in range(D):
+        lo, hi = min(d * R, A.M), min((d + 1) * R, A.M)
+        caps.append(int(per_nnz[A.ptr[lo]:A.ptr[hi]].sum())
+                    if hi > lo else 0)
+    total = max(1, max(caps))
+    require(total < 2**31, SpGEMMError,
+            "per-shard product stream exceeds int32")
+    a_row_nnz = np.diff(A.ptr)
+    max_group = max(1, int(a_row_nnz.max()) if a_row_nnz.size else 1)
+    kern = functools.partial(_shard_esc_kernel, total=total,
+                             max_group=max_group)
+    a_args = (_put(part.ptr, devs), _put(part.col, devs),
+              _put(part.val, devs), _put(part.nnz, devs))
+
+    if b_strategy == "replicate":
+        b_ptr = _replicate(B.ptr.astype(np.int32), devs)
+        b_col = _replicate(B.col.astype(np.int32), devs)
+        b_val = _replicate(B.val.astype(np_dt), devs)
+
+        def payload(b_ptr, b_col, b_val):
+            return ([p[1:] - p[:-1] for p in b_ptr],
+                    [p[:-1] for p in b_ptr], b_col, b_val)
+
+        b_args = (b_ptr, b_col, b_val)
+        words = 0
+    elif b_strategy == "allgather":
+        bpart = partition_rows(B, D, value_dtype=np_dt)
+        RB, bcap = bpart.rows_per_shard, bpart.nnz_cap
+
+        def payload(b_ptr_l, b_col_l, b_val_l):
+            # every shard reassembles B from the blocks
+            bp = [p.reshape(D, RB + 1) for p in all_gather(b_ptr_l, devs)]
+            lens = [(p[:, 1:] - p[:, :-1]).reshape(-1)[:B.M] for p in bp]
+            starts = [(p[:, :-1] + (torch.arange(
+                D, dtype=torch.int32, device=p.device) * bcap)[:, None]
+            ).reshape(-1)[:B.M] for p in bp]
+            return (lens, starts, all_gather(b_col_l, devs),
+                    all_gather(b_val_l, devs))
+
+        b_args = (_put(bpart.ptr, devs), _put(bpart.col, devs),
+                  _put(bpart.val, devs))
+        words = D * D * (RB + 1 + bcap * (1 + vwords))
+    elif b_strategy == "ragged":
+        bpart = partition_rows(B, D, value_dtype=np_dt)
+        fp = plan_ragged_fetch(A, B, part, bpart)
+        a_args = a_args[:1] + (_put(fp.a_col_remap, devs),) + a_args[2:]
+
+        def payload(b_col_l, b_val_l, send_src, recv_start, recv_len):
+            # per-destination blocks (host-planned indices), one exchange
+            rc = all_to_all([c[s] for c, s in zip(b_col_l, send_src)], devs)
+            rv = all_to_all([v[s] for v, s in zip(b_val_l, send_src)], devs)
+            # payload address space: [local block | halo from each shard]
+            return (recv_len, recv_start,
+                    [torch.cat([c, r.reshape(-1)])
+                     for c, r in zip(b_col_l, rc)],
+                    [torch.cat([v, r.reshape(-1)])
+                     for v, r in zip(b_val_l, rv)])
+
+        b_args = (_put(bpart.col, devs), _put(bpart.val, devs),
+                  _put(fp.send_src.astype(np.int64), devs),
+                  _put(fp.recv_start, devs), _put(fp.recv_len, devs))
+        words = D * D * (1 + vwords) * fp.v_cap
+    else:
+        raise SpGEMMError(f"unknown b_strategy {b_strategy!r}")
+    plan_s = time.perf_counter() - t0
+
+    def program(a_ptr, a_col, a_val, a_nnz, *b_args):
+        lens, starts, bc, bv = payload(*b_args)
+        return [kern(*x) for x in zip(a_ptr, a_col, a_val, a_nnz, lens,
+                                      starts, bc, bv)]
+
+    args = a_args + b_args
+    outs = program(*args)
+    if state is not None:
+        state.update(fn=program, args=args, R=R, total=total,
+                     bounds=part.bounds, plans=None, plan_s=plan_s,
+                     exchanged_words=words)
+    return _assemble(A, B, outs, part.bounds)
 
 
 def _dist_setup(A: CSR, B: CSR, D: int, config: SpGEMMConfig):

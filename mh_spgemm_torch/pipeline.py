@@ -3,7 +3,10 @@
 int32 indexing (``spgemm_chunked``), the block-dense engine
 (``spgemm_blockdense``), the class-based masked engine
 (``spgemm_masked``), the per-matrix engine choice of ``mode="auto"``
-(``choose_engine``), and the CSR-in / CSR-out ``spgemm_host``.
+(``choose_engine``), the DeviceCSR-level engines (``spgemm`` with a
+reusable ``SpGEMMPlan``: the product-granularity masked pipeline and the
+fused ESC engine, with the reference's seven-phase accounting), and the
+CSR-in / CSR-out ``spgemm_host``.
 
 Every entry point runs on the card (``device=None`` means ``"cuda"``,
 and a given ``state`` keeps the device it was prepared for)
@@ -25,10 +28,15 @@ from .csr import CSR, DeviceCSR
 from .errors import DeviceError, ShapeMismatchError, SpGEMMError, require
 from .ops import blockdense as blockdense_ops
 from .ops import bucketed as bucketed_ops
+from .ops import mask as mask_ops
 from .ops import masked_classes as masked_ops
+from .ops import numeric as numeric_ops
+from .ops import symbolic as symbolic_ops
+from .ops.shapes import quantize, quantize_pow2
 from .timing import PhaseTimer, Timing, device_fence
 
 _NP_DTYPES = {torch.float64: np.float64, torch.float32: np.float32}
+_INT32_MAX = 2**31 - 1
 
 _FENCE_ON = True
 
@@ -498,6 +506,186 @@ def spgemm_masked(A: CSR, B: CSR,
                      nnz_true=plan.nnz_c), state
 
 
+# ---------------------------------------------------------------------------
+# DeviceCSR-level engines: the product-granularity masked pipeline and ESC
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SpGEMMPlan:
+    """Host sizes discovered during a run of :func:`spgemm`.  A call with
+    a plan whose sizes are known reads nothing back from the device and
+    synchronizes only at its phase fences (none under
+    :class:`no_fence`)."""
+
+    m: int
+    n: int
+    nnz_a: int
+    nnz_b: int
+    max_group: int
+    total_tiles: Optional[int] = None
+    t_prime: Optional[int] = None
+    intprod: Optional[int] = None
+    nnz_c: Optional[int] = None
+    tc: Optional[int] = None
+
+
+def spgemm(A: DeviceCSR, B: DeviceCSR,
+           config: SpGEMMConfig = DEFAULT_CONFIG,
+           timing: Optional[Timing] = None,
+           plan: Optional[SpGEMMPlan] = None) -> DeviceCSR:
+    """C = A @ B on the operands' device (CUDA tensors run on the card,
+    CPU tensors on the CPU).  Returns a DeviceCSR whose tensors may be
+    capacity-padded; ``M`` / ``nnz_true`` carry the logical sizes and
+    ``host()`` trims.  ``mode="masked"`` runs the product-granularity
+    masked pipeline, every other mode the fused ESC engine: the bucketed
+    and block-dense engines plan from host CSR data
+    (:func:`spgemm_host` routes them)."""
+    require(A.N == B.M, ShapeMismatchError, "A.N must equal B.M")
+    timing = timing if timing is not None else Timing()
+    if config.mode == "masked":
+        return _spgemm_masked(A, B, config, timing, plan)
+    if config.mode in ("esc", "bucketed", "blockdense", "auto"):
+        return _spgemm_esc(A, B, config, timing, plan)
+    raise SpGEMMError(f"unknown mode {config.mode!r}")
+
+
+def make_plan(A: DeviceCSR, B: DeviceCSR) -> SpGEMMPlan:
+    """A fresh plan: the shapes and the scan pass bound (the longest A
+    row, rounded up to a power of two; reads ``A.ptr`` back)."""
+    a_row_nnz = np.diff(A.ptr.cpu().numpy())
+    max_group = int(a_row_nnz.max()) if a_row_nnz.size else 1
+    return SpGEMMPlan(m=A.M, n=B.N, nnz_a=A.nnz, nnz_b=B.nnz,
+                      max_group=quantize_pow2(max_group))
+
+
+def _empty_c(A: DeviceCSR, B: DeviceCSR, config: SpGEMMConfig) -> DeviceCSR:
+    dev = A.device
+    return DeviceCSR(M=A.M, N=B.N,
+                     ptr=torch.zeros(A.M + 1, dtype=torch.int32, device=dev),
+                     col=torch.zeros(0, dtype=torch.int32, device=dev),
+                     val=torch.zeros(0, dtype=config.vdtype, device=dev),
+                     nnz_true=0)
+
+
+def _spgemm_masked(A: DeviceCSR, B: DeviceCSR, config: SpGEMMConfig,
+                   timing: Timing, plan: Optional[SpGEMMPlan]) -> DeviceCSR:
+    """The paper's two-stage pipeline at product granularity: B's mask
+    matrix, the exact symbolic stage (tile OR and popcount), then
+    mask-guided accumulation.  A cold call reads the mask stage's and the
+    symbolic stage's totals back once each; a warm plan reads nothing."""
+    dev = A.device
+    with PhaseTimer.phase(timing, "mem_alloc"):
+        if plan is None:
+            plan = make_plan(A, B)
+        a_val = A.val.to(config.vdtype)
+        b_val = B.val.to(config.vdtype)
+        _fence(dev)
+
+    if A.nnz == 0 or B.nnz == 0:
+        return _empty_c(A, B, config)
+
+    # B's mask matrix (excluded from the total, like the reference)
+    warm = plan.t_prime is not None and plan.nnz_c is not None
+    with PhaseTimer.phase(timing, "form_mask_matrix_b"):
+        st = mask_ops.mask_stage(B.ptr, B.col, A.ptr, A.col)
+        if not warm:
+            totals = st.totals.cpu().numpy()
+            plan.total_tiles = int(totals[0])
+            plan.t_prime = int(totals[1])
+            plan.intprod = int(totals[2])
+            require(plan.t_prime < _INT32_MAX, SpGEMMError,
+                    "symbolic stream exceeds int32; use the chunked "
+                    "pipeline")
+            require(plan.intprod < _INT32_MAX, SpGEMMError,
+                    "product stream exceeds int32; use the chunked "
+                    "pipeline")
+            # the numeric stage holds several product-long arrays: past
+            # this budget the bucketed engine is the path
+            require(plan.intprod <= config.masked_max_products,
+                    SpGEMMError,
+                    f"product stream {plan.intprod} exceeds the masked "
+                    "engine's memory budget; use mode='bucketed'/'auto'")
+
+    if plan.t_prime == 0:
+        return _empty_c(A, B, config)
+
+    with PhaseTimer.phase(timing, "symbolic_binning"):
+        t_prime_cap = quantize(plan.t_prime)
+
+    with PhaseTimer.phase(timing, "calculate_c_nnz"):
+        sym = symbolic_ops.symbolic(A.ptr, A.col, st.mask, t_prime_cap,
+                                    plan.max_group)
+        if not warm:
+            _fence(dev)
+
+    with PhaseTimer.phase(timing, "malloc_c_col_val"):
+        if not warm:
+            sym_totals = sym.totals.cpu().numpy()
+            plan.nnz_c = int(sym_totals[0])
+            plan.tc = int(sym_totals[1])
+
+    if plan.nnz_c == 0:
+        return _empty_c(A, B, config)
+
+    with PhaseTimer.phase(timing, "numeric_binning"):
+        nnz_c_cap = quantize(plan.nnz_c)
+        tc_cap = quantize(plan.tc)
+        intprod_cap = quantize(plan.intprod)
+
+    with PhaseTimer.phase(timing, "numeric"):
+        cs, cval = numeric_ops.finish_masked(
+            A.ptr, A.col, a_val, B.ptr, B.col, b_val, st.mask, sym,
+            intprod_cap, tc_cap, nnz_c_cap)
+        _fence(dev)
+
+    return DeviceCSR(M=A.M, N=B.N, ptr=cs.cptr, col=cs.ccol, val=cval,
+                     nnz_true=plan.nnz_c)
+
+
+def _spgemm_esc(A: DeviceCSR, B: DeviceCSR, config: SpGEMMConfig,
+                timing: Timing, plan: Optional[SpGEMMPlan]) -> DeviceCSR:
+    """Fused expand-sort-compress: no mask matrix, one sort at column
+    granularity.  A cold call reads ``A.ptr``, B's row lengths and
+    nnz(C) back; a plan that knows ``intprod`` and ``nnz_c`` reads
+    nothing."""
+    dev = A.device
+    with PhaseTimer.phase(timing, "mem_alloc"):
+        if plan is None:
+            plan = make_plan(A, B)
+        a_val = A.val.to(config.vdtype)
+        b_val = B.val.to(config.vdtype)
+        _fence(dev)
+
+    if A.nnz == 0 or B.nnz == 0:
+        return _empty_c(A, B, config)
+
+    with PhaseTimer.phase(timing, "symbolic_binning"):
+        if plan.intprod is None:
+            blens = np.diff(B.ptr.cpu().numpy()).astype(np.int64)
+            a_col = A.col[: A.nnz].cpu().numpy()
+            plan.intprod = int(blens[a_col].sum())
+        require(plan.intprod < _INT32_MAX, SpGEMMError,
+                "product stream exceeds int32; use the chunked pipeline")
+
+    if plan.intprod == 0:
+        return _empty_c(A, B, config)
+
+    with PhaseTimer.phase(timing, "numeric"):
+        total_cap = quantize(plan.intprod)
+        cap = quantize(plan.nnz_c) if plan.nnz_c is not None else total_cap
+        res = numeric_ops.numeric_esc(
+            A.ptr, A.col, a_val, B.ptr, B.col, b_val,
+            total_cap, cap, plan.max_group)
+        _fence(dev)
+
+    with PhaseTimer.phase(timing, "malloc_c_col_val"):
+        if plan.nnz_c is None:
+            plan.nnz_c = int(res.nnz_total)
+
+    return DeviceCSR(M=A.M, N=B.N, ptr=res.cptr, col=res.col_cap,
+                     val=res.val_cap, nnz_true=plan.nnz_c)
+
+
 def choose_engine(A: CSR, B: CSR, config: SpGEMMConfig,
                   device=None) -> str:
     """``"blockdense"`` or ``"bucketed"`` for C = A @ B on ``device`` (the
@@ -530,7 +718,8 @@ def spgemm_host(A: CSR, B: Optional[CSR] = None,
                 timing: Optional[Timing] = None, device=None) -> CSR:
     """CSR in, CSR out.  ``B=None`` computes C = A @ A, or A @ A^T under
     ``config.aat``.  ``mode="auto"`` picks the engine per matrix
-    (:func:`choose_engine`).  The bucketed engine falls back to
+    (:func:`choose_engine`); ``mode="esc"`` uploads padded operands and
+    runs :func:`spgemm`.  The bucketed engine falls back to
     :func:`spgemm_chunked` when the slab needs more than int32
     indexing."""
     check_supported(config)
@@ -544,6 +733,11 @@ def spgemm_host(A: CSR, B: Optional[CSR] = None,
         run = spgemm_blockdense if mode == "blockdense" else spgemm_masked
         C, _ = run(A, B, config=config, timing=timing, device=dev)
         return C.host()
+    if mode == "esc":
+        dA = A.device(config.vdtype, pad=True, device=dev)
+        dB = B.device(config.vdtype, pad=True, device=dev) \
+            if B is not A else dA
+        return spgemm(dA, dB, config=config, timing=timing).host()
     try:
         C, _ = spgemm_bucketed(A, B, config=config, timing=timing,
                                device=dev)

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from mh_spgemm_tpu.bench.driver import main as jax_main
+from mh_spgemm_torch import CSR
 from mh_spgemm_torch.bench import gen
 from mh_spgemm_torch.bench.driver import main as port_main
 from mh_spgemm_torch.io.mmio import write_mtx
@@ -88,12 +89,16 @@ def test_cli_text_output(mtx, capsys):
         assert line in out
 
 
-def test_cli_failures_return_1(mtx, capsys):
+def test_cli_failures_return_1(mtx, tmp_path, capsys):
     assert port_main(["/nonexistent/not_there.mtx", "--device", "cpu"]) == 1
     assert "FAILED" in capsys.readouterr().out
-    assert port_main([mtx["band"], "--device", "cpu", "--mode",
-                      "esc"]) == 1
-    assert "MH-SpGEMM failed!!!" in capsys.readouterr().out
+    # A @ A of a rectangular matrix fails in both CLIs
+    rect = str(tmp_path / "rect.mtx")
+    write_mtx(rect, CSR.from_coo(3, 5, [0, 1, 2], [4, 0, 3],
+                                 [1.0, 2.0, 3.0]))
+    for main, extra in ((port_main, ["--device", "cpu"]), (jax_main, [])):
+        assert main([rect, "--mode", "esc", *extra]) == 1
+        assert "ShapeMismatchError" in capsys.readouterr().out
 
 
 def test_cli_masked_matches_jax(mtx, capsys):

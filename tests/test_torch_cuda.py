@@ -2,8 +2,10 @@
 slab form esc_tail, ragged_fill, the two pair matmuls, block_gather,
 pgather, proute and halo_exchange) against its plain PyTorch version on
 the card, and the bucketed (with and without the fill frontend, planned
-and not), block-dense (with the windowed extraction), masked and
-distributed engines on the card against the scipy oracle.  They skip
+and not), block-dense (with the windowed extraction), masked,
+DeviceCSR-level (ESC and product-granularity masked, warm calls with no
+host sync) and distributed (bucketed and ESC) engines on the card
+against the scipy oracle.  They skip
 where there is no CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -593,3 +595,47 @@ def test_dist_ragged_pallas_on_card(cuda, value_dtype):
     X = spgemm_dist(A, None, mesh, b_strategy="ragged",
                     config=SpGEMMConfig(value_dtype=value_dtype))
     assert np.array_equal(X.col, C.col) and np.array_equal(X.val, C.val)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("value_dtype", ["float64", "float32"])
+@pytest.mark.parametrize("mode", ["esc", "masked"])
+def test_device_engines_on_card(cuda, mode, value_dtype):
+    """spgemm on padded device operands (the fused ESC engine and the
+    product-granularity masked pipeline) on the card against the oracle,
+    cold and then warm through the plan; the warm calls, queued under
+    no_fence, make no host synchronization (torch's sync debug mode
+    raises on one)."""
+    from mh_spgemm_torch.pipeline import make_plan, no_fence, spgemm
+    A = gen.powerlaw(3000, avg_nnz=5, seed=42)
+    ref = oracle_spgemm(A, A)
+    tol = 1e-9 if value_dtype == "float64" else 1e-4
+    cfg = SpGEMMConfig(mode=mode, value_dtype=value_dtype)
+    dA = A.device(cfg.vdtype, pad=True)
+    assert dA.ptr.is_cuda and dA.val.dtype == cfg.vdtype
+    plan = make_plan(dA, dA)
+    C = spgemm(dA, dA, config=cfg, plan=plan)
+    assert C.val.is_cuda and C.host().equals(ref, tol=tol)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with no_fence():
+            for _ in range(3):
+                C = spgemm(dA, dA, config=cfg, plan=plan)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert C.host().equals(ref, tol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["replicate", "allgather", "ragged"])
+def test_dist_esc_on_card(cuda, strategy):
+    """spgemm_dist(engine="esc") on 4 shards of the card, cold and warm,
+    against the oracle."""
+    A = gen.powerlaw(3000, avg_nnz=5, seed=42)
+    ref = oracle_spgemm(A, A)
+    st = {}
+    for _ in range(2):
+        C = spgemm_dist(A, None, make_row_mesh(4), b_strategy=strategy,
+                        state=st, engine="esc")
+        assert C.equals(ref, tol=1e-9)
