@@ -169,7 +169,30 @@
    mh_spgemm_torch scircuit --mode masked --check --iters 2`` and
    ``python -m mh_spgemm_torch scircuit --mode esc --check --iters 3``
    must exit 0 and pass.
-11. Prints ``{"kernels": [...]}`` (all nine kernels), the card's name and
+11. Soak phase: the structured catalog's 400 cases (``bench/soak.py``)
+   through ``spgemm_host`` under ``mode`` bucketed, blockdense, masked,
+   esc and auto with the CUDA defaults, in f64, one subprocess per
+   family (four at a time: a device-side assert poisons only its own
+   family's process), each C against the scipy oracle within 1e-9; and
+   ``mode="masked"`` on ``rect_tall(0)``, ``planned="on"`` on
+   ``diag_full_row(6)`` and ``rect_tall(9)``, cold and warm.  No run may
+   fail, and the soak's launches of ``esc_tail_flat``, ``pgather``,
+   ``proute`` and ``pair_matmul_f64`` (counted in the subprocesses) must
+   be nonzero.  Prints the ``soak`` line: cases, runs per engine,
+   failures, the repaired runs, the launches of kernels 1-7 and seconds
+   (also in each kernel's ``soak_launches``).
+12. Suite phase: ``python -m mh_spgemm_torch.bench.suite`` in a
+   subprocess over the 16 stand-ins under ``mode="auto"``, f64, its plan
+   and oracle caches under ``build/``: exit 0, every member's digest
+   check against ``data/oracle_digest.json`` passes, the summary is not
+   partial, the masked contract members (cant, pdb1HYS) ran without
+   error, and nothing of JAX is printed.  Prints a ``suite member`` line
+   per member (engine, GFLOPS, warm ms) and the ``suite`` line (the
+   summary's headline fields).  Then the runner again in a new process
+   on cage12 (bucketed) and pdb1HYS (block-dense): each plan must warm
+   from the plan-cache record the first run saved (``plan_cache: hit``)
+   and pass its check (the ``suite plan_cache`` line).
+13. Prints ``{"kernels": [...]}`` (all nine kernels), the card's name and
    power limit, and,
    as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -185,6 +208,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -241,6 +265,11 @@ DIST_CALLS = (
     ("cage12", "ragged", "pallas", "auto", False),
     ("cage12", "ragged", "pallas", "on", False),
 )
+# kernels the soak must reach (ragged_fill's count is printed: the cost
+# model may not pick the fill on such small cases)
+SOAK_MUST_LAUNCH = ("esc_tail_flat", "pgather", "proute", "pair_matmul_f64")
+SUITE_DEADLINE_S = 600
+SUITE_REWARM = ("cage12", "pdb1HYS")     # rerun warm from the plan cache
 # proute's checks: (m, hold widths); the main path's networks run m from
 # 1024 to 131072, scircuit's A routes m_a = 16384 with hold 2048 and
 # 65536 with holds 64 and 1024
@@ -2080,6 +2109,97 @@ def cli_phase() -> dict:
     return res
 
 
+def soak_phase() -> dict:
+    """The structured soak on the card (``bench/soak.soak``): the 400
+    catalog cases through the five engines under the CUDA defaults, in
+    f64, one subprocess per family (``soak.JOBS`` at a time), and the
+    repaired cases cold and warm under the setting that showed each
+    fault.  No failure; every engine ran every case; the soak reached
+    ``SOAK_MUST_LAUNCH``."""
+    from mh_spgemm_torch.bench import soak
+    rep = soak.soak()
+    print("soak " + json.dumps({k: rep[k] for k in (
+        "cases", "runs", "failures", "repaired", "launches", "seconds",
+        "family_seconds")}), flush=True)
+    for fam, errs in rep["errors"].items():
+        for e in errs[:5]:
+            print(f"soak error {fam}: {e[-1500:]}")
+    check(not rep["failures"], f"soak failures: {rep['failures'][:20]}")
+    check(rep["cases"] == 400 and all(
+        n == 400 for n in rep["runs"].values()),
+        f"soak ran {rep['cases']} cases, runs {rep['runs']}")
+    check(sum(rep["repaired"]["runs"].values()) == 6,
+          f"repaired runs {rep['repaired']}")
+    for k in SOAK_MUST_LAUNCH:
+        check(rep["launches"][k] > 0, f"the soak launched no {k}")
+    return rep
+
+
+def suite_phase() -> dict:
+    """``python -m mh_spgemm_torch.bench.suite`` over the 16 stand-ins in a
+    subprocess (plan and oracle caches under ``build/``): exit 0, every
+    member's digest check passes, the summary is not partial, the masked
+    contract members ran without error, and nothing of JAX is printed."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    build = os.path.join(root, "build")
+    out = os.path.join(build, "suite_summary.json")
+    env = dict(os.environ,
+               MHSPGEMM_PLAN_CACHE=os.path.join(build, "plan_cache"),
+               MHSPGEMM_ORACLE_CACHE=os.path.join(build,
+                                                  "oracle_digest.json"))
+    cmd = [sys.executable, "-m", "mh_spgemm_torch.bench.suite",
+           "--deadline-s", str(SUITE_DEADLINE_S), "--out", out]
+    shutil.rmtree(env["MHSPGEMM_PLAN_CACHE"], ignore_errors=True)
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=SUITE_DEADLINE_S + 300, env=env)
+    for line in proc.stderr.splitlines()[-60:]:
+        print("suite", line)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    check(bool(lines), f"the suite printed no summary (rc "
+          f"{proc.returncode}): {proc.stderr[-2000:]}")
+    summ = json.loads(lines[-1])
+    for name, row in summ["detail"].items():
+        print("suite member " + json.dumps({
+            "name": name, "engine": row.get("engine"),
+            "gflops": row.get("gflops"), "warm_ms": row.get("total_ms"),
+            "intprod": row.get("intprod"), "nnz_c": row.get("nnz_c"),
+            "check": row.get("check"), "plan_cache": row.get("plan_cache"),
+            "oracle_source": row.get("oracle_source"),
+            "seconds": row.get("seconds")}))
+    print("suite " + json.dumps({k: summ.get(k) for k in (
+        "metric", "value", "unit", "vs_baseline", "partial", "verified",
+        "check_failures", "skipped", "masked")}), flush=True)
+    check(proc.returncode == 0, f"the suite exited {proc.returncode}")
+    check(not summ["partial"] and summ["verified"] == 16
+          and summ["metric"] == "spgemm_gflops_geomean_16",
+          f"suite: partial {summ['partial']}, verified {summ['verified']}")
+    check(all(row.get("check") == "pass" for row in summ["detail"].values()),
+          f"suite check failures: {summ['check_failures']}")
+    check(sorted(summ.get("masked", {})) == ["cant", "pdb1HYS"] and not any(
+        "error" in v for v in summ["masked"].values()),
+        f"masked contract entries: {summ.get('masked')}")
+    text = (proc.stdout + proc.stderr).lower()
+    check("jax" not in text and "mh_spgemm_tpu" not in text,
+          "the suite's output mentions JAX")
+    # a second process warms its plans from the records the run saved
+    warm = [sys.executable, "-m", "mh_spgemm_torch.bench.suite",
+            "--matrices", ",".join(SUITE_REWARM), "--masked", "", "--out",
+            os.path.join(build, "suite_rewarm.json")]
+    proc = subprocess.run(warm, cwd=root, capture_output=True, text=True,
+                          timeout=600, env=env)
+    rows = [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith('{"member"')]
+    print("suite plan_cache " + json.dumps({
+        r["member"]: {k: r.get(k) for k in ("plan_cache", "check",
+                                            "total_ms", "seconds")}
+        for r in rows}))
+    check(proc.returncode == 0 and len(rows) == len(SUITE_REWARM) and all(
+        r["plan_cache"] == "hit" and r["check"] == "pass" for r in rows),
+        f"plan-cache rerun (rc {proc.returncode}): {rows} "
+        f"{proc.stderr[-1500:]}")
+    return summ
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2172,6 +2292,11 @@ def main() -> int:
     done("dist_bench")
     cli = cli_phase()
     done("cli")
+    torch.cuda.empty_cache()          # the subprocesses below need the card
+    soak = soak_phase()
+    done("soak")
+    suite = suite_phase()
+    done("suite")
     print("extraction " + json.dumps({
         name: {k: v for k, v in row.items() if k.startswith("extract")}
         for name, row in ext_ms.items()}))
@@ -2294,6 +2419,8 @@ def main() -> int:
     for k in kernels["kernels"]:           # what ptxas made of its source
         src = os.path.basename(k["source"])[:-len(".cu")]
         k.setdefault("ptxas", ptxas[src])
+        if k["name"] in soak["launches"]:  # the soak's subprocesses
+            k["soak_launches"] = soak["launches"][k["name"]]
     print(json.dumps({"cli_gflops": cli["gflops"],
                       "dist_bench": db["devices"],
                       "dist_bench_esc": db_esc["devices"],
@@ -2305,6 +2432,13 @@ def main() -> int:
                       "dist_esc_warm_ms": {
                           f"{r['matrix']} {r['strategy']}": r["warm_ms"]
                           for r in dev_dist},
+                      "soak_seconds": soak["seconds"],
+                      "soak_failures": len(soak["failures"]),
+                      "suite_metric": suite["metric"],
+                      "suite_value": suite["value"],
+                      "suite_warm_ms": {
+                          name: row["total_ms"]
+                          for name, row in suite["detail"].items()},
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps(kernels))
     print(smi)

@@ -55,6 +55,8 @@ class BenchResult:
     torch_ms: Optional[float] = None   # torch CPU sparse product (--torch)
     torch_gflops: Optional[float] = None
     failed: bool = False
+    error: Optional[str] = None        # the exception text of a failure
+    digest: Optional[dict] = None      # device result digest (digest=True)
 
     def as_dict(self) -> dict:
         d = {
@@ -74,15 +76,26 @@ class BenchResult:
             d["torch_gflops"] = self.torch_gflops
         if self.stats is not None:
             d["stats"] = self.stats
+        if self.error is not None:
+            d["error"] = self.error
         return d
 
 
 def run_matrix(A: CSR, name: str, config: SpGEMMConfig,
                iters: int = 3, warmup: int = 2,
                check: bool = False, verbose: bool = True,
-               torch_baseline: bool = False, device=None) -> BenchResult:
+               torch_baseline: bool = False, device=None,
+               mode: Optional[str] = None, state=None,
+               digest: bool = False) -> BenchResult:
     """Benchmark C = A @ B (B = A, or A^T under ``config.aat``) on one
-    matrix, on ``device`` (the card when None)."""
+    matrix, on ``device`` (the card when None).
+
+    ``mode`` and ``state`` let a caller that has chosen the engine and
+    prepared its state (for example warmed from the plan cache,
+    ``bench/plan_cache.py``) skip planning; the engine updates ``state``
+    in place.  ``digest=True`` records ``baseline.digest_device`` of C
+    (``BenchResult.digest``), which the suite runner checks against the
+    oracle's digest."""
     from .. import pipeline as pl
 
     B = A.transpose() if (config.aat and not A.is_symmetric) else A
@@ -91,12 +104,13 @@ def run_matrix(A: CSR, name: str, config: SpGEMMConfig,
         print(f"Matrix {name} ({A.M} , {B.N}) nnz:{A.nnz}")
         print(f"SpGEMM intermediate result = {intprod}")
 
-    C = state = None
+    C = None
     bench_timing = Timing()
     try:
         check_supported(config)
         dev = pl.resolve_device(device)
-        mode = config.mode
+        if mode is None:
+            mode = config.mode
         if mode == "auto":
             mode = pl.choose_engine(A, B, config, device=dev)
             if verbose:
@@ -149,7 +163,7 @@ def run_matrix(A: CSR, name: str, config: SpGEMMConfig,
         return BenchResult(name=name, m=A.M, n=B.N, nnz_a=A.nnz, nnz_c=0,
                            intprod=intprod, timing=bench_timing, gflops=0.0,
                            nnzc_per_s=0.0, ok=False if check else None,
-                           failed=True)
+                           failed=True, error=f"{type(e).__name__}: {e}")
 
     nnz_c = C.nnz
     total_ms = bench_timing.total()
@@ -168,6 +182,9 @@ def run_matrix(A: CSR, name: str, config: SpGEMMConfig,
         if intprod and total_ms > 0:
             res.stats["ns_per_product"] = round(total_ms * 1e6 / intprod,
                                                 2)
+    if digest:
+        from ..baseline import digest_device
+        res.digest = digest_device(C)
     if check:
         C_ref, oracle_ms = timed_oracle_spgemm(A, B)
         res.oracle_ms = oracle_ms

@@ -1,13 +1,14 @@
 """Benchmark suite definitions: the 16-matrix SuiteSparse set by name and
 its deterministic synthetic stand-ins (the same families, sizes and
 name-derived seeds as ``mh_spgemm_tpu.io.suites``, so both packages
-build bit-identical matrices)."""
+build bit-identical matrices), and the 408-name soak list
+(:func:`matrix408_list`), read from a file the caller names."""
 
 from __future__ import annotations
 
 import os
 import zlib
-from typing import Optional
+from typing import List, Optional
 
 from ..bench import gen
 from ..csr import CSR
@@ -18,6 +19,19 @@ SIXTEEN_MATRICES = [
     "scircuit", "shipsec1", "cop20k_A", "mac_econ_fwd500", "offshore",
     "wb-edu", "cage15", "GAP-road", "delaunay_n24",
 ]
+
+
+def matrix408_list() -> List[str]:
+    """The 408-name SuiteSparse soak list, one matrix name per line of
+    the file ``$MATRIX408_LIST`` names.  Raises FileNotFoundError when the
+    variable is unset or its file is missing; nothing is downloaded."""
+    path = os.environ.get("MATRIX408_LIST")
+    if not path or not os.path.exists(path):
+        raise FileNotFoundError(
+            "set MATRIX408_LIST to a matrix-name list file (one per line)")
+    with open(path) as f:
+        return [ln.strip() for ln in f if ln.strip()]
+
 
 # Structural stand-ins for the 16-matrix suite: (family, kwargs).
 SYNTHETIC_16 = {

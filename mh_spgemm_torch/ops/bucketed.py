@@ -470,7 +470,9 @@ def attach_planned(classes: List[ClassPlan], nnz_b: int) -> None:
     B with at most ``_PF_TABLE_CAP_WORDS - 1300`` nonzeros, and a network
     no wider than ``4 * _PF_CHUNK_CAP``.  A class whose first chunk over
     that width is found stops being scheduled there: the JAX planner
-    drops it on its widest chunk, so the plans agree."""
+    drops it on its widest chunk, so the plans agree.  So does a class
+    with a chunk that puts more than 64 x 128 slots on one window row
+    (``plan_pgather`` returns None), where the JAX planner asserts."""
     if nnz_b + 1300 > _PF_TABLE_CAP_WORDS:
         return
     for c in classes:
@@ -484,11 +486,13 @@ def attach_planned(classes: List[ClassPlan], nnz_b: int) -> None:
             src, aidx = c.slot_src[k], c.slot_aidx[k]
             pos = np.flatnonzero(src >= 0)
             bsch = pn.plan_pgather(src[pos].astype(np.int64), 0)
-            if pn._pow2(max(bsch[0].shape[0] * 1024, L, 1024)) \
-                    > 4 * _PF_CHUNK_CAP:
+            if bsch is None or pn._pow2(
+                    max(bsch[0].shape[0] * 1024, L, 1024)) > 4 * _PF_CHUNK_CAP:
                 break
             hpos = _run_heads(src, aidx, c.W)
             asch = pn.plan_pgather(aidx[hpos].astype(np.int64), 0)
+            if asch is None:
+                break
             scheds.append((pos, bsch, hpos, asch))
         else:
             _attach_schedules(c, scheds, L)
@@ -1074,7 +1078,8 @@ def attach_planned_extract(plan: BucketPlan) -> None:
     the slab-to-CSR gather of each output chunk of ``_PF_CHUNK_CAP`` slots
     as a ``pgather`` schedule of its slab sources and a routing network
     back to output order.  None where a chunk's network would pass
-    ``4 * _PF_CHUNK_CAP``."""
+    ``4 * _PF_CHUNK_CAP`` or a chunk's schedule would put more than 64 x
+    128 slots on one window row (where the JAX planner asserts)."""
     plan.ext_pf = None
     plan.ext_pf_spec = ()
     plan.ext_pf_dev = None
@@ -1087,10 +1092,11 @@ def attach_planned_extract(plan: BucketPlan) -> None:
         lo, hi = i * CH, min(plan.nnz_c, (i + 1) * CH)
         srcs = (plan.ext_src_h[lo:hi].astype(np.int64) if hi > lo
                 else np.zeros(0, np.int64))
-        scheds.append(pn.plan_pgather(srcs, 0))
-        if pn._pow2(max(scheds[-1][0].shape[0] * 1024, CH, 1024)) \
+        sch = pn.plan_pgather(srcs, 0)
+        if sch is None or pn._pow2(max(sch[0].shape[0] * 1024, CH, 1024)) \
                 > 4 * _PF_CHUNK_CAP:
             return               # as the JAX planner on its widest chunk
+        scheds.append(sch)
     m_e = pn._pow2(max(max(s[0].shape[0] for s in scheds) * 1024, CH, 1024))
     pads = [pn.pad_schedule(s, m_e) for s in scheds]
     masks, nst_e = _routes([pn.route_dest(s[3], m_e) for s in scheds], m_e)

@@ -1,5 +1,7 @@
 """B mask-matrix formation — the port of ``mh_spgemm_tpu/ops/mask.py``
-(``MaskMatrix``, ``mask_stage``).
+(``MaskMatrix``, ``mask_stage``, and the standalone pieces
+``count_tiles``, ``form_mask_matrix``, ``flops_upper_bound`` and
+``flops_exact`` that tests and tools use).
 
 Each B row is re-encoded as a list of 32-column tiles ``(tilecol,
 tilemask)``: bit k of a tile's mask means column ``32*tilecol + k`` is
@@ -15,11 +17,12 @@ in ``int32`` tensors (``.numpy().view(np.uint32)`` reads them back).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
-from .scan import compact, exclusive_cumsum, row_ids, rows_reduce_int
+from .scan import (compact, exclusive_cumsum, row_ids, rows_reduce_int,
+                   take)
 
 TILE_BITS = 5                       # 32-column tiles
 
@@ -88,9 +91,11 @@ def mask_stage(b_ptr: torch.Tensor, b_col: torch.Tensor,
     mask = MaskMatrix(tileptr=tileptr, tilecol=tilecol, tilemask=tilemask,
                       nnz_to_tile=nnz_to_tile)
 
+    # clamped gathers, as JAX's: the class-based masked engine passes B
+    # as both operands, whose column indices may pass B's row count
     ac = a_col.long()
-    fub_row = rows_reduce_int(tiles_per_row[ac], a_ptr)
-    prod_row = rows_reduce_int(b_ptr[ac + 1] - b_ptr[ac], a_ptr)
+    fub_row = rows_reduce_int(take(tiles_per_row, ac), a_ptr)
+    prod_row = rows_reduce_int(take(b_ptr, ac + 1) - take(b_ptr, ac), a_ptr)
     totals = torch.stack([tiles_per_row.sum(dtype=torch.int64),
                           fub_row.sum(dtype=torch.int64),
                           prod_row.sum(dtype=torch.int64)])
@@ -98,3 +103,45 @@ def mask_stage(b_ptr: torch.Tensor, b_col: torch.Tensor,
     return MaskStage(mask=mask, fub_row=fub_row, prod_row=prod_row,
                      totals=totals,
                      max_arow=arow.max() if arow.numel() else arow.sum())
+
+
+# ---------------------------------------------------------------------------
+# Standalone pieces (tests and tools; the pipeline uses mask_stage)
+# ---------------------------------------------------------------------------
+
+def count_tiles(ptr: torch.Tensor, col: torch.Tensor, m: int, nnz: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row distinct-tile counts (int32[m]) and their total.  ``col``
+    may be padded past ``nnz``; the padding is not read."""
+    valid = torch.arange(nnz, device=col.device) < ptr[-1]
+    btile = col[:nnz] >> TILE_BITS
+    rows = row_ids(ptr, nnz)
+    is_start = _run_starts(rows, btile) & valid
+    tiles_per_row = rows_reduce_int(is_start.to(torch.int32), ptr)
+    return tiles_per_row, tiles_per_row.sum()
+
+
+def form_mask_matrix(ptr: torch.Tensor, col: torch.Tensor, m: int,
+                     nnz: int, total_tiles: int) -> MaskMatrix:
+    """The mask matrix with a tile array of exactly ``total_tiles``
+    entries (the host-read true count)."""
+    mk = mask_stage(ptr, col[:nnz], ptr, col[:nnz]).mask
+    return MaskMatrix(tileptr=mk.tileptr, tilecol=mk.tilecol[:total_tiles],
+                      tilemask=mk.tilemask[:total_tiles],
+                      nnz_to_tile=mk.nnz_to_tile)
+
+
+def flops_upper_bound(a_ptr: torch.Tensor, a_col: torch.Tensor,
+                      tiles_per_row_b: torch.Tensor, nnz_a: int
+                      ) -> torch.Tensor:
+    """Per-C-row flop upper bound: the sum over A(i,:) of the tile counts
+    of the B rows it references."""
+    return rows_reduce_int(take(tiles_per_row_b, a_col[:nnz_a].long()),
+                           a_ptr)
+
+
+def flops_exact(a_ptr: torch.Tensor, a_col: torch.Tensor,
+                b_ptr: torch.Tensor, nnz_a: int) -> torch.Tensor:
+    """Per-C-row intermediate-product count."""
+    ac = a_col[:nnz_a].long()
+    return rows_reduce_int(take(b_ptr, ac + 1) - take(b_ptr, ac), a_ptr)

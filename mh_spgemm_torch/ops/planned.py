@@ -58,7 +58,11 @@ def plan_pgather(src: np.ndarray, table_words: int):
     8g..8g+7, ``rowsel[j, l]`` the window row that lane ``l`` of row ``j``
     reads, ``lane[j, l]`` the lane that output position ``l`` of row ``j``
     takes, and ``perm[p]`` the index into ``src`` landing at scheduled
-    position ``p`` (-1 pad)."""
+    position ``p`` (-1 pad).
+
+    Returns None when more than 64 x 128 slots fall on one window row
+    (the row would need more than 64 copies), where the JAX planner
+    asserts; the port's callers leave such a chunk unscheduled."""
     S = src.size
     if S == 0:
         return (np.zeros(1, np.int32), np.zeros((8, 128), np.int32),
@@ -90,8 +94,9 @@ def plan_pgather(src: np.ndarray, table_words: int):
     pos_in = np.arange(lk.size) - first
     clone = pos_in // 128
     col = pos_in % 128
+    if clone.max(initial=0) >= 64:
+        return None            # a window row would need over 64 copies
     pkey = lk * 64 + np.minimum(clone, 63)
-    assert clone.max(initial=0) < 64, "pathological clone count"
     pu, pinv = np.unique(pkey, return_inverse=True)
     nrows = pu.size
     row_win = pu // (64 * 64)

@@ -3,8 +3,9 @@
 
 The library is optional and only read: when it is absent every caller
 takes its numpy path, which gives identical results.  The port uses two
-of its entry points: the bucket planner's descriptor builder and the
-Matrix Market body parser.
+of its entry points: the bucket planner's descriptor builder, the
+Matrix Market body parser and the intermediate-product count
+(:func:`intprod`).
 """
 
 from __future__ import annotations
@@ -49,6 +50,8 @@ def load(path: Optional[str] = None) -> Optional[ctypes.CDLL]:
     ]
     lib.mh_free.restype = None
     lib.mh_free.argtypes = [ctypes.c_void_p]
+    lib.mh_intprod.restype = ctypes.c_longlong
+    lib.mh_intprod.argtypes = [_IP, _IP, ctypes.c_longlong, _IP]
     lib.mh_bucket_entries.restype = ctypes.c_longlong
     lib.mh_bucket_entries.argtypes = [
         _IP, _IP, _IP, _IP, ctypes.c_longlong, ctypes.c_int32,
@@ -87,6 +90,18 @@ def parse_mtx_body(path: str, is_pattern: bool, is_complex: bool
     lib.mh_free(pcols)
     lib.mh_free(pvals)
     return M, N, rows, cols, vals
+
+
+def intprod(a_col: np.ndarray, b_ptr: np.ndarray) -> Optional[int]:
+    """The intermediate-product count of A @ B, the sum over A's
+    nonzeros of nnz(B[A.col[i]]), or None when the library is absent."""
+    lib = load()
+    if lib is None:
+        return None
+    a_col = np.ascontiguousarray(a_col, dtype=np.int32)
+    b_ptr = np.ascontiguousarray(b_ptr, dtype=np.int32)
+    return int(lib.mh_intprod(a_col.ctypes.data_as(_IP),
+                              b_ptr.ctypes.data_as(_IP), len(a_col), None))
 
 
 def bucket_entries(a_ptr: np.ndarray, a_col: np.ndarray,

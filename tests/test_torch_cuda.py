@@ -5,7 +5,8 @@ the card, and the bucketed (with and without the fill frontend, planned
 and not), block-dense (with the windowed extraction), masked,
 DeviceCSR-level (ESC and product-granularity masked, warm calls with no
 host sync) and distributed (bucketed and ESC) engines on the card
-against the scipy oracle.  They skip
+against the scipy oracle, and the structured catalog's repaired and
+degenerate cases through the engines, cold and warm.  They skip
 where there is no CUDA device.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -639,3 +640,69 @@ def test_dist_esc_on_card(cuda, strategy):
         C = spgemm_dist(A, None, make_row_mesh(4), b_strategy=strategy,
                         state=st, engine="esc")
         assert C.equals(ref, tol=1e-9)
+
+
+def engine_calls(A, B, mode: str, n: int = 2, device="cuda"):
+    """``n`` calls of one engine on ``device``, the first cold and the
+    rest warm through the state (or SpGEMMPlan) the first returned;
+    ``auto`` takes the engine ``choose_engine`` picks.  Yields host C
+    each."""
+    from mh_spgemm_torch.pipeline import choose_engine, make_plan, spgemm
+    cfg = SpGEMMConfig(mode=mode)
+    if mode == "auto":
+        mode = choose_engine(A, B, cfg, device=device)
+    if mode == "esc":
+        dA = A.device(cfg.vdtype, pad=True, device=device)
+        dB = B.device(cfg.vdtype, pad=True, device=device) \
+            if B is not A else dA
+        plan = make_plan(dA, dB)
+        for _ in range(n):
+            yield spgemm(dA, dB, config=cfg, plan=plan).host()
+        return
+    run = {"bucketed": spgemm_bucketed, "blockdense": spgemm_blockdense,
+           "masked": spgemm_masked}[mode]
+    state = None
+    for _ in range(n):
+        C, state = run(A, B, config=cfg, state=state, device=device)
+        yield C.host()
+
+
+@pytest.mark.cuda
+def test_rect_tall0_masked_on_card(cuda):
+    """The class-based masked engine on a B wider than it is tall (its
+    mask stage gathers B's tile counts at B's column indices, clamped),
+    cold and warm, against the oracle; the card's context stays usable."""
+    from mh_spgemm_torch.bench import structured
+    A, B = structured.make_case("rect_tall", 0)
+    ref = oracle_spgemm(A, B)
+    for C in engine_calls(A, B, "masked", 3):
+        assert C.equals(ref, tol=1e-9)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [("diag_full_row", 6), ("rect_tall", 9)])
+def test_clone_cap_cases_under_default_config(cuda, case):
+    """Cases whose chunks would clone a window row more than 64 times,
+    under DEFAULT_CONFIG (planned on the card), cold and warm."""
+    from mh_spgemm_torch.bench import structured
+    A, B = structured.make_case(*case)
+    ref = oracle_spgemm(A, B)
+    for C in engine_calls(A, B, "bucketed", 3):
+        assert C.equals(ref, tol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bucketed", "blockdense", "masked", "esc",
+                                  "auto"])
+@pytest.mark.parametrize("kind", [0, 1, 2, 3, 4])
+def test_degenerate_cases_on_card(cuda, kind, mode):
+    """The catalog's degenerate shapes (1 x 1, 1 x N by N x 1, empty,
+    one entry in the last row, N x 3 by 3 x N) through each engine on the
+    card, cold and warm: no kernel is launched on empty input."""
+    from mh_spgemm_torch.bench import structured
+    A, B = structured.make_case("degenerate", kind)
+    ref = oracle_spgemm(A, B)
+    for C in engine_calls(A, B, mode):
+        assert C.equals(ref, tol=1e-9)
+    torch.cuda.synchronize()
