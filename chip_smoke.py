@@ -60,7 +60,10 @@
    against ``index_select`` for f64, f32 and int32 (exact);
    ``halo_exchange`` against its plain version and against
    ``torch.stack(sends).transpose(0, 1)`` for D in {1, 2, 4, 8} and vr in
-   {1, 3, 336, 5376}, every shard in its own allocation (exact), and
+   {1, 3, 336, 5376}, every shard in its own allocation (exact), at D=8
+   also into each receiving range of ``HALO_SUBSETS`` alone (a
+   process's own shards; given buffers) against the plain version's
+   subset and the whole exchange's slice (exact), and
    ``exchange_planes`` round-tripping 3 planes of cap 300.
 4. Bucketed phase: ``spgemm_host`` and ``spgemm_bucketed`` (one cold
    call, then warm calls reusing the state) under the default config
@@ -129,7 +132,7 @@
    the full-size stand-ins: scircuit under ``replicate``, ``allgather``,
    ``ragged`` ("xla" and "pallas"), ``ragged_overlap`` as its model
    decides and forced, and ``grid2d``; cage12 under ``ragged`` (both
-   backends) and once with ``dma_fill="on"``.  Each cold (host wall
+   backends), once with ``dma_fill="on"``, and under ``allgather``.  Each cold (host wall
    clock), then warm through its state (CUDA events: a whole call, and
    the shard program alone), every C against the oracle within 1e-9;
    prints per call D, the shard classes (W, rb, nchunks, fill), plan_s,
@@ -139,7 +142,28 @@
    call, in that call.  Then each stand-in's two backends' warm calls in
    turns (pallas, xla, xla, pallas), and ``halo_exchange`` timed at both
    stand-ins' D=8 exchange shapes beside its plain version, the stack
-   yardstick and its byte bound.  Then ``python -m
+   yardstick and its byte bound.  Then the multi-process phase: the runs
+   of ``MP_RUNS`` spawn ranks of ``python -m
+   mh_spgemm_torch.parallel.worker`` on the one card (gloo rendezvous on
+   localhost, the device payload by CUDA IPC), D=8 in each: 2 ranks x 4
+   shards on scircuit (the bucketed engine under every strategy and both
+   backends, ragged_overlap forced, grid2d on 4 x 2; ESC under
+   replicate, allgather and ragged) and on cage12 (bucketed ragged under
+   both backends, allgather), and 8 ranks x 1 shard on scircuit (bucketed
+   ragged, "pallas").  Every rank must exit 0 within ``MP_TIMEOUT_S``
+   (a failed rank kills the rest) and print its OK line, every C must
+   equal the oracle (in the rank) and, bit for bit, the single-process
+   D=8 C of the same call (digests of the distributed phases' cold Cs);
+   the ESC tails (``esc_tail``, ``esc_tail_flat``) must have launched in
+   every rank of each bucketed call, ``halo_exchange`` in every rank of
+   each bucketed ragged "pallas" call and in none of the
+   ``ragged_overlap`` or ESC calls; each rank's counts are its call's own
+   runs (not the turns' single-process calls).  Prints per rank and call the cold, warm and shard-program ms,
+   the barriers a call and their ms, and the ms of the gather of C's host
+   pieces over gloo (the ``multiprocess`` lines), and
+   cage12's ragged "pallas" call in turns against the single-process D=8
+   call (``multiprocess_turns``; ranks time-slice the card).  Then
+   ``python -m
    mh_spgemm_torch.bench.dist_bench scircuit --max-devices 8`` in a
    subprocess, with ``--engine bucketed`` and with ``--engine esc``, must
    exit 0, pass every check and print nothing of JAX.
@@ -264,7 +288,23 @@ DIST_CALLS = (
     ("cage12", "ragged", "xla", "auto", False),
     ("cage12", "ragged", "pallas", "auto", False),
     ("cage12", "ragged", "pallas", "on", False),
+    ("cage12", "allgather", "xla", "auto", False),
 )
+# the multi-process phase: (processes, shards per process, matrix, calls
+# of parallel/worker.py) on the one card, D = 8 in every run
+MP_RUNS = (
+    (2, 4, "scircuit",
+     tuple(f"bucketed:{s}:{b}" + (":force" if s == "ragged_overlap" else "")
+           for s in ("replicate", "allgather", "ragged", "ragged_overlap",
+                     "grid2d") for b in ("pallas", "xla"))
+     + ("esc:replicate:xla", "esc:allgather:xla", "esc:ragged:xla")),
+    (2, 4, "cage12", ("bucketed:ragged:pallas:turns", "bucketed:ragged:xla",
+                      "bucketed:allgather:xla")),
+    (8, 1, "scircuit", ("bucketed:ragged:pallas",)),
+)
+MP_WARM = 3                 # warm calls a call, and a turn's calls
+MP_TIMEOUT_S = 240          # a run's ranks, start to end
+HALO_SUBSETS = ((0, 4), (4, 4), (7, 1), (2, 3))    # (dst_first, count), D=8
 # kernels the soak must reach (ragged_fill's count is printed: the cost
 # model may not pick the fill on such small cases)
 SOAK_MUST_LAUNCH = ("esc_tail_flat", "pgather", "proute", "pair_matmul_f64")
@@ -1313,13 +1353,16 @@ def device_engine_phase(torch, mt, et, rf, pn, rfx, pm, mats: dict,
     return rows
 
 
-def device_dist_phase(torch, mt, mats: dict, refs: dict) -> list:
+def device_dist_phase(torch, mt, mats: dict, refs: dict,
+                      digests: dict) -> list:
     """spgemm_dist(engine="esc") on DIST_SHARDS shards of the card for
     each of DEVICE_DIST_CALLS: cold (host wall clock), then warm through
     the state (CUDA events: a whole call, host assembly included, and the
-    shard program alone); every C against the oracle."""
+    shard program alone); every C against the oracle, its digest in
+    ``digests``."""
     from mh_spgemm_torch.parallel.mesh import make_row_mesh
     from mh_spgemm_torch.parallel.spgemm_dist import spgemm_dist
+    from mh_spgemm_torch.parallel.worker import csr_sha
     mesh = make_row_mesh(DIST_SHARDS)
     rows = []
     for name, strategy in DEVICE_DIST_CALLS:
@@ -1331,6 +1374,7 @@ def device_dist_phase(torch, mt, mats: dict, refs: dict) -> list:
         cold_ms = (time.perf_counter() - t0) * 1e3
         label = f"{name} esc {strategy}"
         check(C.equals(ref, tol=1e-9), f"dist {label}: cold != oracle")
+        digests[mp_key(name, "esc", strategy, "xla", False)] = csr_sha(C)
         out = {}
 
         def warm():
@@ -1357,7 +1401,10 @@ def halo_kernel_phase(torch, rfx, dev) -> int:
     """halo_exchange against its plain version and against the yardstick
     ``torch.stack(sends).transpose(0, 1)`` for D in HALO_DS and vr in
     HALO_VRS, the shards in separate allocations, exact on every word;
-    then exchange_planes round-trips 3 planes of cap 300.  Returns the
+    at D = 8 the exchange into each receiving range of HALO_SUBSETS
+    alone (into given buffers), against the plain version's subset and
+    the whole exchange's slice; then exchange_planes round-trips 3 planes
+    of cap 300.  Returns the
     max abs error (0 when the run gets here)."""
     rng = np.random.default_rng(6)
     for D in HALO_DS:
@@ -1377,6 +1424,28 @@ def halo_kernel_phase(torch, rfx, dev) -> int:
                   f"vr={vr})")
             print(f"kernel halo_exchange D={D} vr={vr:5d} "
                   f"words={D * D * vr * 128} exact ok", flush=True)
+            if D == 8:
+                # a process's own shards: the receiving range alone, into
+                # buffers it keeps
+                for first, count in HALO_SUBSETS:
+                    out = [torch.empty_like(sends[0]) for _ in range(count)]
+                    sub = rfx.halo_exchange(sends, n_devices=D,
+                                            dst_first=first,
+                                            dst_count=count, out=out)
+                    torch.cuda.synchronize()
+                    plain = rfx.halo_exchange_plain(
+                        sends, n_devices=D, dst_first=first,
+                        dst_count=count)
+                    check(all(torch.equal(g, w) and torch.equal(g, want[
+                        first + j]) for j, (g, w) in enumerate(zip(
+                            sub, plain))),
+                          f"halo_exchange into shards {first}.."
+                          f"{first + count - 1} differs from its plain "
+                          f"version (vr={vr})")
+                    print(f"kernel halo_exchange D={D} vr={vr:5d} "
+                          f"dst_first={first} dst_count={count} exact ok",
+                          flush=True)
+                    del out, sub, plain
             del sends, got, want, lib
     D, cap = 4, 300
     planes = [[torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (D, cap),
@@ -1485,17 +1554,29 @@ def profile_program(torch, st, program_ms: float, label: str) -> dict:
     return row
 
 
-def dist_phase(torch, mt, rfx, et, rf, mats: dict, refs: dict):
+def mp_key(matrix: str, engine: str, strategy: str, backend: str,
+           force: bool) -> tuple:
+    """The key of a distributed call's C: the backend only where it
+    changes the path (the bucketed engine's ragged exchange)."""
+    if engine != "bucketed" or strategy != "ragged":
+        backend = "-"
+    return (matrix, engine, strategy, backend, force)
+
+
+def dist_phase(torch, mt, rfx, et, rf, mats: dict, refs: dict,
+               digests: dict):
     """spgemm_dist on D=8 shards of the one card (grid2d on 4 x 2) for
     each of DIST_CALLS: cold (host wall clock, planning included), then
     warm through the state (CUDA events: a whole call, host assembly
     included, and the shard program alone); every C against the oracle.
     The launch counts are set to 0 before the phase; ragged_fill's again
     before the forced-fill call.  Then the two backends' warm calls in
-    turns (pallas, xla, xla, pallas) on scircuit and cage12.  Returns
+    turns (pallas, xla, xla, pallas) on scircuit and cage12.  Records
+    each cold C's digest in ``digests`` (by :func:`mp_key`).  Returns
     (rows, launches, pallas states)."""
     from mh_spgemm_torch.parallel.mesh import make_grid_mesh, make_row_mesh
     from mh_spgemm_torch.parallel.spgemm_dist import spgemm_dist
+    from mh_spgemm_torch.parallel.worker import csr_sha
     counted = (rfx.halo_exchange, et.esc_tail, et.esc_tail_flat,
                rf.ragged_fill)
     for fn in counted:
@@ -1523,6 +1604,9 @@ def dist_phase(torch, mt, rfx, et, rf, mats: dict, refs: dict):
             os.environ.pop("MHSPGEMM_FORCE_OVERLAP", None)
         label = f"{name} {strategy} {backend} dma_fill={fill}"
         check(C.equals(ref, tol=1e-9), f"dist {label}: cold != oracle")
+        if fill == "auto":
+            digests[mp_key(name, "bucketed", strategy, backend,
+                           force)] = csr_sha(C)
         out = {}
 
         def warm():
@@ -1605,7 +1689,8 @@ def time_halo(torch, rfx, states: dict) -> dict:
         vp = ctypes.c_void_p * D
         sp, rp = (vp(*[t.data_ptr() for t in x]) for x in (sends, recvs))
         stream = torch.cuda.current_stream().cuda_stream
-        launch_ms = cuda_ms(lambda: fn(sp, rp, D, rows * 128, stream), 20)
+        launch_ms = cuda_ms(lambda: fn(sp, rp, D, rows * 128, 0, D, stream),
+                            20)
         plain_ms = cuda_ms(lambda: rfx.halo_exchange_plain(
             sends, n_devices=D), 5)
         lib_ms = cuda_ms(
@@ -1622,6 +1707,132 @@ def time_halo(torch, rfx, states: dict) -> dict:
               f"{bound_ms:.4f} ms ({nbytes} B)", flush=True)
         del sends, recvs
     return res
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(nproc: int, spp: int, matrix: str, calls, out: str) -> list:
+    """``nproc`` ranks of ``python -m mh_spgemm_torch.parallel.worker`` on
+    the card, ``spp`` shards each; each must exit 0 and print its OK line
+    within MP_TIMEOUT_S.  A rank that fails or a run past the limit kills
+    every rank still running.  Returns every rank's records."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(out, exist_ok=True)
+    port = free_port()
+    logs = [os.path.join(out, f"rank{r}.log") for r in range(nproc)]
+    procs = []
+    try:
+        for r in range(nproc):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "mh_spgemm_torch.parallel.worker",
+                     str(port), str(r), str(nproc), str(spp), "--device",
+                     "cuda", "--matrix", matrix, "--calls", ",".join(calls),
+                     "--out", out, "--warm", str(MP_WARM),
+                     "--timeout", str(MP_TIMEOUT_S // 2)],
+                    cwd=root, stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.perf_counter() + MP_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break                       # a rank failed: stop the rest
+            if time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    texts = []
+    for r, path in enumerate(logs):
+        with open(path) as f:
+            texts.append(f.read())
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        check(p.returncode == 0 and
+              f"rank {r}: multiprocess dist OK" in text,
+              f"multiprocess {matrix} {nproc}x{spp}: rank {r} exited "
+              f"{p.returncode}:\n{text[-3000:]}")
+    records = []
+    for r in range(nproc):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            records.extend(json.load(f))
+    return records
+
+
+def multiprocess_phase(digests: dict) -> dict:
+    """spgemm_dist across processes on the one card: each run of MP_RUNS
+    spawns its ranks of ``parallel.worker`` (gloo rendezvous on
+    localhost, payload by CUDA IPC), which check every C against the
+    oracle and time it (cold; MP_WARM warm calls: the whole call, the
+    shard program and the exchanges' barriers); here every rank's C must
+    equal, bit for bit (:func:`csr_sha`), the single-process D=8 C of the
+    same call from the distributed phases, the ESC tails must have
+    launched in every rank of each bucketed call, ``halo_exchange`` in
+    every rank of each bucketed ragged pallas call and in no
+    ``ragged_overlap`` or ESC call (those exchange by copies).  A rank's
+    counts are its call's cold, warm and program runs: the worker reads
+    them before the turns.  cage12's
+    ragged pallas call is timed in turns against the single-process D=8
+    call on the card (single, multi, multi, single): processes time-slice
+    the card without MPS, so this is overhead, not scaling.  Returns the
+    launches summed over ranks and calls, the rows and the turns."""
+    out_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "multiprocess")
+    shutil.rmtree(out_root, ignore_errors=True)
+    launches, rows, turns = {}, [], None
+    for nproc, spp, matrix, calls in MP_RUNS:
+        t0 = time.perf_counter()
+        recs = spawn_ranks(nproc, spp, matrix, calls,
+                           os.path.join(out_root, f"{matrix}_{nproc}x{spp}"))
+        seconds = time.perf_counter() - t0
+        check(len(recs) == nproc * len(calls),
+              f"multiprocess {matrix} {nproc}x{spp}: {len(recs)} records")
+        for rec in recs:
+            spec = rec["call"].split(":")
+            engine, strategy, backend = spec[:3]
+            key = mp_key(matrix, engine, strategy, backend, "force" in spec)
+            label = f"{matrix} {nproc}x{spp} rank {rec['rank']} {rec['call']}"
+            check(key in digests, f"multiprocess {label}: no single-process "
+                  f"C to compare with ({key})")
+            check(rec["digest"] == digests[key], f"multiprocess {label}: C "
+                  "differs from the single-process D=8 C")
+            halo = rec["launches"]["halo_exchange"]
+            if engine == "bucketed":
+                check(rec["launches"]["esc_tail"]
+                      + rec["launches"]["esc_tail_flat"] > 0,
+                      f"multiprocess {label}: no ESC tail launched")
+            if engine == "bucketed" and strategy == "ragged" and \
+                    backend == "pallas":
+                check(halo > 0, f"multiprocess {label}: halo_exchange did "
+                      "not launch")
+            elif strategy == "ragged_overlap" or engine == "esc":
+                check(halo == 0, f"multiprocess {label}: halo_exchange "
+                      "launched on a path that exchanges by copies")
+            for k, n in rec["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+            row = {"matrix": matrix, "processes": nproc,
+                   "shards_per_process": spp, **{k: rec.get(k) for k in (
+                       "rank", "call", "D", "grid", "cold_ms", "warm_ms",
+                       "program_ms", "barriers_per_call", "barrier_ms",
+                       "sync_ms", "gather_ms", "launches", "nnz")},
+                   "same_as_single_process": True}
+            print("multiprocess " + json.dumps(row), flush=True)
+            rows.append(row)
+            if "turns" in rec and rec["rank"] == 0:
+                turns = {"matrix": matrix, "call": rec["call"],
+                         "processes": nproc, "shards_per_process": spp,
+                         "warm_ms": rec["turns"], "calls_a_turn": MP_WARM}
+                print("multiprocess_turns " + json.dumps(turns), flush=True)
+        print(f"multiprocess run {matrix} {nproc}x{spp}: {len(calls)} calls, "
+              f"{seconds:.1f} s", flush=True)
+    check(turns is not None, "multiprocess: no call was timed in turns")
+    print("multiprocess launches " + json.dumps(launches), flush=True)
+    return {"launches": launches, "rows": rows, "turns": turns}
 
 
 def dist_bench_phase(engine: str = "bucketed") -> dict:
@@ -2256,7 +2467,8 @@ def main() -> int:
     done("planned against off")
     dev_rows = device_engine_phase(torch, mt, et, rf, pn, rfx, pm, mats,
                                    refs, states, dev)
-    dev_dist = device_dist_phase(torch, mt, mats, refs)
+    digests = {}          # single-process distributed Cs, by mp_key
+    dev_dist = device_dist_phase(torch, mt, mats, refs, digests)
     done("DeviceCSR engines and spgemm_dist(engine='esc')")
     ext_ms = breakdown_phase(et, bk, states)
     breakdown_phase(et, bk, off_states, label="stages_planned_off")
@@ -2283,10 +2495,13 @@ def main() -> int:
     m_launches = masked_phase(torch, mt, rf, mats, refs, dev)
     done("masked")
     dist_rows, dist_launches, dist_states = dist_phase(
-        torch, mt, rfx, et, rf, mats, refs)
+        torch, mt, rfx, et, rf, mats, refs, digests)
     th = time_halo(torch, rfx, dist_states)
     del mats, refs, dist_states
     done("distributed and halo_exchange timing")
+    torch.cuda.empty_cache()          # the ranks below share the card
+    mp = multiprocess_phase(digests)
+    done("multi-process spgemm_dist")
     db = dist_bench_phase()
     db_esc = dist_bench_phase("esc")
     done("dist_bench")
@@ -2302,12 +2517,14 @@ def main() -> int:
         for name, row in ext_ms.items()}))
     tail_by_phase = {"bucketed": launches["esc_tail"],
                      "forced_fill": fill_launches["esc_tail"],
-                     "distributed": dist_launches["esc_tail"]}
+                     "distributed": dist_launches["esc_tail"],
+                     "multiprocess": mp["launches"]["esc_tail"]}
     fill_by_phase = {"bucketed": launches["ragged_fill"],
                      "forced_fill": fill_launches["ragged_fill"],
                      "blockdense": bd_launches["ragged_fill"],
                      "masked": sum(m_launches.values()),
-                     "distributed": dist_launches["ragged_fill"]}
+                     "distributed": dist_launches["ragged_fill"],
+                     "multiprocess": mp["launches"]["ragged_fill"]}
     replaces = {"pair_matmul_f32": "mh_spgemm_tpu/ops/pallas_gather.py:108",
                 "pair_matmul_f64": "mh_spgemm_tpu/ops/ozaki.py:201",
                 "block_gather": "mh_spgemm_tpu/ops/pallas_gather.py:43"}
@@ -2315,7 +2532,11 @@ def main() -> int:
         "name": "esc_tail_flat", "route": "cuda",
         "source": "mh_spgemm_torch/csrc/esc_tail.cu",
         "replaces": "mh_spgemm_tpu/ops/esc_tail.py:234",
-        "launches": launches["esc_tail_flat"],
+        "launches": launches["esc_tail_flat"]
+        + mp["launches"]["esc_tail_flat"],
+        "launches_by_phase": {
+            "bucketed": launches["esc_tail_flat"],
+            "multiprocess": mp["launches"]["esc_tail_flat"]},
         "max_abs_err": errs[torch.float64],
         "max_abs_err_f32": errs[torch.float32],
         "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -2405,7 +2626,12 @@ def main() -> int:
         "name": "halo_exchange", "route": "cuda",
         "source": "mh_spgemm_torch/csrc/remote_fetch.cu",
         "replaces": "mh_spgemm_tpu/ops/remote_fetch.py:67",
-        "launches": dist_launches["halo_exchange"], "max_abs_err": herr,
+        "launches": (dist_launches["halo_exchange"]
+                     + mp["launches"]["halo_exchange"]),
+        "launches_by_phase": {
+            "distributed": dist_launches["halo_exchange"],
+            "multiprocess": mp["launches"]["halo_exchange"]},
+        "max_abs_err": herr,
         "ms": th["cage12"]["ms"], "plain_ms": th["cage12"]["plain_ms"],
         "bound_ms": th["cage12"]["bound_ms"],
         "bound_by": th["cage12"]["bound_by"],
@@ -2432,6 +2658,12 @@ def main() -> int:
                       "dist_esc_warm_ms": {
                           f"{r['matrix']} {r['strategy']}": r["warm_ms"]
                           for r in dev_dist},
+                      "multiprocess_warm_ms": {
+                          f"{r['matrix']} {r['processes']}x"
+                          f"{r['shards_per_process']} {r['call']}":
+                          r["warm_ms"] for r in mp["rows"]
+                          if r["rank"] == 0},
+                      "multiprocess_turns": mp["turns"],
                       "soak_seconds": soak["seconds"],
                       "soak_failures": len(soak["failures"]),
                       "suite_metric": suite["metric"],

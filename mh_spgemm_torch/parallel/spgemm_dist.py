@@ -17,14 +17,17 @@ the fused expand-sort-compress engine (``ops/numeric.esc_segments``) on
 B replicated, gathered or ragged-fetched.
 
 Execution is bulk-synchronous, what ``shard_map`` amounts to on a
-virtual mesh: each stage runs shard by shard in one process, and the
-collectives are the barriers between stages.  The collectives are torch
+virtual mesh: each stage runs shard by shard, and the collectives are the
+barriers between stages.  In one process the collectives are torch
 copies (``all_gather``, and ``all_to_all`` under ``comm_backend="xla"``,
 the counterpart of XLA's collectives), or one launch of the
 ``halo_exchange`` kernel under ``comm_backend="pallas"``, which moves every
-shard's blocks (``ops/remote_fetch.py``).  The card computes in native
-f64, so values cross the exchange as their raw words (the JAX package's
-Dekker split has no cause here).
+shard's blocks (``ops/remote_fetch.py``).  A mesh that spans processes
+(``mesh.init_multihost``) runs each process's own shards and crosses
+processes in ``parallel/comm.py`` (gloo on CPU shards, CUDA IPC on the
+card); every process plans every shard and returns the whole C.  The card
+computes in native f64, so values cross the exchange as their raw words
+(the JAX package's Dekker split has no cause here).
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import dataclasses
 import functools
 import os
 import time
-from typing import List, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -46,6 +49,7 @@ from ..ops import numeric as numeric_ops
 from ..ops import remote_fetch
 from ..ops.shapes import quantize
 from ..pipeline import _NP_DTYPES
+from . import comm
 from .mesh import COLS, ROWS, Mesh
 
 # The overlap decision's constants, the JAX package's (TPU v5e and host
@@ -241,47 +245,18 @@ def plan_col_blocks(B: CSR, dc: int):
 
 
 # ---------------------------------------------------------------------------
-# Shard placement and collectives
+# Per-shard lists
 # ---------------------------------------------------------------------------
 
-def _put(x: np.ndarray, devs) -> List[torch.Tensor]:
-    """Block d of ``x`` (stacked over shards) on shard d's device."""
-    return [torch.from_numpy(np.ascontiguousarray(x[d])).to(dev)
-            for d, dev in enumerate(devs)]
+def _each(fn, *lists) -> list:
+    """``fn`` over the shards of zipped per-shard lists; None where the
+    first list has None (a shard another process owns)."""
+    return [None if xs[0] is None else fn(*xs) for xs in zip(*lists)]
 
 
-def _replicate(x: np.ndarray, devs) -> List[torch.Tensor]:
-    """``x`` on every shard's device (one copy per distinct device)."""
-    per = {}
-    for dev in devs:
-        if dev not in per:
-            per[dev] = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-    return [per[dev] for dev in devs]
-
-
-def all_gather(blocks: List[torch.Tensor], devs) -> List[torch.Tensor]:
-    """Every shard's block concatenated, on each shard's device (one
-    concatenation per distinct device: the shards of one device read the
-    same gathered copy)."""
-    per = {}
-    for dev in devs:
-        if dev not in per:
-            per[dev] = torch.cat([b.to(dev) for b in blocks])
-    return [per[dev] for dev in devs]
-
-
-def all_to_all(sends: List[torch.Tensor], devs) -> List[torch.Tensor]:
-    """The ``comm_backend="xla"`` exchange, the counterpart of XLA's
-    ``all_to_all(x, axis, 0, 0)``: shard s receives, in row d, row s of
-    shard d's send tensor.  Plain torch copies (one stack and transpose
-    where every shard shares a device); ``ops/remote_fetch`` holds the
-    hand-written kernel."""
-    D = len(sends)
-    if len(set(devs)) == 1:
-        out = torch.stack(sends).transpose(0, 1).contiguous()
-        return [out[s] for s in range(D)]
-    return [torch.stack([sends[d][s].to(devs[s]) for d in range(D)])
-            for s in range(D)]
+def _part(lists, k: int) -> list:
+    """Part k of each shard's tuple (None stays None)."""
+    return [None if x is None else x[k] for x in lists]
 
 
 # ---------------------------------------------------------------------------
@@ -312,21 +287,28 @@ def _shard_bucketed_kernel(plan, a_val, b_col, b_val, pairs, *, m_cap: int,
     return crow[:rows_local], ccol, cval, cptr[m_cap]
 
 
-def _collect(outs):
+def _collect(outs, mesh: Mesh):
     """The shards' outputs on the host: crow int32[D, R], and each shard's
-    columns and values trimmed to its nnz."""
-    nnz = [int(o[3]) for o in outs]
-    crow = np.stack([o[0].cpu().numpy() for o in outs])
-    cols = [o[1][:n].cpu().numpy() for o, n in zip(outs, nnz)]
-    vals = [o[2][:n].cpu().numpy() for o, n in zip(outs, nnz)]
-    return crow, cols, vals
+    columns and values trimmed to its nnz.  Each process fetches its own
+    shards' pieces; across processes they are gathered over gloo (the
+    JAX package's ``process_allgather``), so every process holds all."""
+    local = {}
+    for d, o in enumerate(outs):
+        if o is not None:
+            n = int(o[3])
+            local[d] = (o[0].cpu().numpy(), o[1][:n].cpu().numpy(),
+                        o[2][:n].cpu().numpy())
+    every = comm.gather_local(mesh, local)
+    D = len(outs)
+    return (np.stack([every[d][0] for d in range(D)]),
+            [every[d][1] for d in range(D)], [every[d][2] for d in range(D)])
 
 
-def _assemble(A: CSR, B: CSR, outs, bounds: np.ndarray) -> CSR:
+def _assemble(A: CSR, B: CSR, outs, bounds: np.ndarray, mesh: Mesh) -> CSR:
     """Host assembly: each shard's rows (its crow block is padded to R
     rows; ``bounds`` are the owned row ranges) and its trimmed columns
     and values, concatenated."""
-    crow, cols, vals = _collect(outs)
+    crow, cols, vals = _collect(outs, mesh)
     crow_nnz = np.concatenate(
         [crow[d, :int(bounds[d + 1] - bounds[d])]
          for d in range(len(outs))]).astype(np.int64)
@@ -338,11 +320,12 @@ def _assemble(A: CSR, B: CSR, outs, bounds: np.ndarray) -> CSR:
                val=np.concatenate(vals))
 
 
-def _assemble2d(A: CSR, B: CSR, Dr: int, Dc: int, outs, bounds) -> CSR:
+def _assemble2d(A: CSR, B: CSR, Dr: int, Dc: int, outs, bounds,
+                mesh: Mesh) -> CSR:
     """Host assembly for the 2-D grid: row r's CSR entries are the
     concatenation over c of shard (r, c)'s packed segment for that row
     (blocks carry global column ids, so the order is ascending)."""
-    crow_all, cols_all, vals_all = _collect(outs)
+    crow_all, cols_all, vals_all = _collect(outs, mesh)
     R = crow_all.shape[1]
     crow = crow_all.reshape(Dr, Dc, R)
     seg = np.zeros((A.M, Dc), np.int64)
@@ -398,9 +381,11 @@ def _product_cap(A: CSR, blens: np.ndarray, bounds) -> int:
     return total
 
 
-def _upload(plans, devs) -> None:
-    for p, dev in zip(plans, devs):
-        bucketed_ops.upload_plan(p, dev)
+def _upload(plans, mesh: Mesh) -> None:
+    """Each local shard's plan to its device."""
+    for d, (p, dev) in enumerate(zip(plans, mesh.devices)):
+        if mesh.is_local(d):
+            bucketed_ops.upload_plan(p, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -432,8 +417,9 @@ def spgemm_dist(A: CSR, B: Optional[CSR], mesh: Mesh,
         column block over ``rows``.
 
     A given ``state`` dict keeps the program and its operands on the
-    shards' devices after the first call; later calls with it skip
-    planning and upload.  The state also records ``plan_s`` (host
+    shards' devices after the first call (and a multi-process mesh's
+    exchange buffers and IPC views); later calls with it skip planning
+    and upload.  The state also records ``plan_s`` (host
     planning seconds), ``exchanged_words`` (words the shards receive in
     one call's collectives, a shard's own block included) and ``plans``.
     A shard plan past int32 indexing (a ``ValueError``) falls back to
@@ -442,7 +428,18 @@ def spgemm_dist(A: CSR, B: Optional[CSR], mesh: Mesh,
     ``engine="esc"`` runs the flat expand-sort-compress engine on every
     shard instead (:func:`_spgemm_dist_esc`; ``replicate``,
     ``allgather`` and ``ragged``), the robust fallback and differential
-    check of the bucketed path."""
+    check of the bucketed path.
+
+    Across processes (after ``parallel.mesh.init_multihost``, on a mesh
+    from ``make_row_mesh`` / ``make_grid_mesh``): every process calls
+    with the full host A (and B), the same config and the same
+    environment (``MHSPGEMM_FORCE_OVERLAP`` included), as in the JAX
+    package.  Each plans every shard, checks at the cold call that all
+    planned the same (``SpGEMMError`` otherwise), runs only its own
+    shards, and returns the whole C; the collectives cross processes
+    (``parallel/comm.py``).  Every engine, strategy and backend,
+    ``dma_fill``, the warm state and the overflow fallback work there as
+    in one process."""
     route = check_supported(config)
     if B is None:
         B = A.transpose() if (config.aat and not A.is_symmetric) else A
@@ -455,8 +452,8 @@ def spgemm_dist(A: CSR, B: Optional[CSR], mesh: Mesh,
         outs = state["fn"](*state["args"])
         if state.get("grid"):
             Dr, Dc = state["grid"]
-            return _assemble2d(A, B, Dr, Dc, outs, state["bounds"])
-        return _assemble(A, B, outs, state["bounds"])
+            return _assemble2d(A, B, Dr, Dc, outs, state["bounds"], mesh)
+        return _assemble(A, B, outs, state["bounds"], mesh)
 
     if engine == "esc":
         return _spgemm_dist_esc(A, B, mesh, config, b_strategy, state)
@@ -498,7 +495,6 @@ def _spgemm_dist_esc(A: CSR, B: CSR, mesh: Mesh, config: SpGEMMConfig,
     ``lax.all_to_all``."""
     t0 = time.perf_counter()
     D = mesh.size
-    devs = list(mesh.devices)
     np_dt = _NP_DTYPES[config.vdtype]
     vwords = 2 if np_dt == np.float64 else 1
     part = partition_rows(A, D, value_dtype=np_dt)
@@ -517,65 +513,76 @@ def _spgemm_dist_esc(A: CSR, B: CSR, mesh: Mesh, config: SpGEMMConfig,
     max_group = max(1, int(a_row_nnz.max()) if a_row_nnz.size else 1)
     kern = functools.partial(_shard_esc_kernel, total=total,
                              max_group=max_group)
-    a_args = (_put(part.ptr, devs), _put(part.col, devs),
-              _put(part.val, devs), _put(part.nnz, devs))
+    a_col = part.col
 
     if b_strategy == "replicate":
-        b_ptr = _replicate(B.ptr.astype(np.int32), devs)
-        b_col = _replicate(B.col.astype(np.int32), devs)
-        b_val = _replicate(B.val.astype(np_dt), devs)
+        comm.check_same(mesh, "ESC shards", A, B, part)
+        b_ptr = comm.replicate(B.ptr.astype(np.int32), mesh)
+        b_col = comm.replicate(B.col.astype(np.int32), mesh)
+        b_val = comm.replicate(B.val.astype(np_dt), mesh)
 
         def payload(b_ptr, b_col, b_val):
-            return ([p[1:] - p[:-1] for p in b_ptr],
-                    [p[:-1] for p in b_ptr], b_col, b_val)
+            return (_each(lambda p: p[1:] - p[:-1], b_ptr),
+                    _each(lambda p: p[:-1], b_ptr), b_col, b_val)
 
         b_args = (b_ptr, b_col, b_val)
         words = 0
     elif b_strategy == "allgather":
         bpart = partition_rows(B, D, value_dtype=np_dt)
+        comm.check_same(mesh, "ESC shards", A, B, part, bpart)
         RB, bcap = bpart.rows_per_shard, bpart.nnz_cap
+        gather = comm.Gather(mesh, _each(
+            lambda *x: x, comm.put(bpart.ptr, mesh),
+            comm.put(bpart.col, mesh), comm.put(bpart.val, mesh)))
 
-        def payload(b_ptr_l, b_col_l, b_val_l):
+        def starts_lens(p):
             # every shard reassembles B from the blocks
-            bp = [p.reshape(D, RB + 1) for p in all_gather(b_ptr_l, devs)]
-            lens = [(p[:, 1:] - p[:, :-1]).reshape(-1)[:B.M] for p in bp]
-            starts = [(p[:, :-1] + (torch.arange(
+            p = p.reshape(D, RB + 1)
+            lens = (p[:, 1:] - p[:, :-1]).reshape(-1)[:B.M]
+            starts = (p[:, :-1] + (torch.arange(
                 D, dtype=torch.int32, device=p.device) * bcap)[:, None]
-            ).reshape(-1)[:B.M] for p in bp]
-            return (lens, starts, all_gather(b_col_l, devs),
-                    all_gather(b_val_l, devs))
+            ).reshape(-1)[:B.M]
+            return lens, starts
 
-        b_args = (_put(bpart.ptr, devs), _put(bpart.col, devs),
-                  _put(bpart.val, devs))
+        def payload():
+            g = gather()
+            sl = _each(starts_lens, _part(g, 0))
+            return _part(sl, 0), _part(sl, 1), _part(g, 1), _part(g, 2)
+
+        b_args = ()
         words = D * D * (RB + 1 + bcap * (1 + vwords))
     elif b_strategy == "ragged":
         bpart = partition_rows(B, D, value_dtype=np_dt)
         fp = plan_ragged_fetch(A, B, part, bpart)
-        a_args = a_args[:1] + (_put(fp.a_col_remap, devs),) + a_args[2:]
+        comm.check_same(mesh, "ESC shards", A, B, part, bpart, fp)
+        a_col = fp.a_col_remap
+        exchange = comm.Exchange(mesh)
 
         def payload(b_col_l, b_val_l, send_src, recv_start, recv_len):
             # per-destination blocks (host-planned indices), one exchange
-            rc = all_to_all([c[s] for c, s in zip(b_col_l, send_src)], devs)
-            rv = all_to_all([v[s] for v, s in zip(b_val_l, send_src)], devs)
+            got = exchange(_each(lambda c, v, s: (c[s], v[s]), b_col_l,
+                                 b_val_l, send_src))
             # payload address space: [local block | halo from each shard]
             return (recv_len, recv_start,
-                    [torch.cat([c, r.reshape(-1)])
-                     for c, r in zip(b_col_l, rc)],
-                    [torch.cat([v, r.reshape(-1)])
-                     for v, r in zip(b_val_l, rv)])
+                    _each(lambda c, r: torch.cat([c, r[0].reshape(-1)]),
+                          b_col_l, got),
+                    _each(lambda v, r: torch.cat([v, r[1].reshape(-1)]),
+                          b_val_l, got))
 
-        b_args = (_put(bpart.col, devs), _put(bpart.val, devs),
-                  _put(fp.send_src.astype(np.int64), devs),
-                  _put(fp.recv_start, devs), _put(fp.recv_len, devs))
+        b_args = (comm.put(bpart.col, mesh), comm.put(bpart.val, mesh),
+                  comm.put(fp.send_src.astype(np.int64), mesh),
+                  comm.put(fp.recv_start, mesh),
+                  comm.put(fp.recv_len, mesh))
         words = D * D * (1 + vwords) * fp.v_cap
     else:
         raise SpGEMMError(f"unknown b_strategy {b_strategy!r}")
+    a_args = (comm.put(part.ptr, mesh), comm.put(a_col, mesh),
+              comm.put(part.val, mesh), comm.put(part.nnz, mesh))
     plan_s = time.perf_counter() - t0
 
     def program(a_ptr, a_col, a_val, a_nnz, *b_args):
         lens, starts, bc, bv = payload(*b_args)
-        return [kern(*x) for x in zip(a_ptr, a_col, a_val, a_nnz, lens,
-                                      starts, bc, bv)]
+        return _each(kern, a_ptr, a_col, a_val, a_nnz, lens, starts, bc, bv)
 
     args = a_args + b_args
     outs = program(*args)
@@ -583,7 +590,7 @@ def _spgemm_dist_esc(A: CSR, B: CSR, mesh: Mesh, config: SpGEMMConfig,
         state.update(fn=program, args=args, R=R, total=total,
                      bounds=part.bounds, plans=None, plan_s=plan_s,
                      exchanged_words=words)
-    return _assemble(A, B, outs, part.bounds)
+    return _assemble(A, B, outs, part.bounds, mesh)
 
 
 def _dist_setup(A: CSR, B: CSR, D: int, config: SpGEMMConfig):
@@ -620,6 +627,7 @@ def _spgemm_dist_bucketed(A: CSR, B: CSR, mesh: Mesh,
         plans = bucketed_ops.plan_buckets_sharded(
             A.ptr, A.col, D, R, b_ptr=B.ptr, **plan_kw)
         words = 0
+        fetch = None
     elif b_strategy == "allgather":
         bpart = partition_rows(B, D, value_dtype=np_dt)
         RB, bcap = bpart.rows_per_shard, bpart.nnz_cap
@@ -629,6 +637,7 @@ def _spgemm_dist_bucketed(A: CSR, B: CSR, mesh: Mesh,
         plans = bucketed_ops.plan_buckets_sharded(
             A.ptr, A.col, D, R, b_starts=starts_g, b_lens=blens, **plan_kw)
         words = D * D * bcap * (1 + vwords)
+        fetch = bpart
     elif b_strategy == "ragged":
         bpart = partition_rows(B, D, value_dtype=np_dt)
         fp = plan_ragged_fetch(A, B, part, bpart)
@@ -640,28 +649,30 @@ def _spgemm_dist_bucketed(A: CSR, B: CSR, mesh: Mesh,
             a_col_shards=a_cols, **plan_kw)
         words = D * D * (1 + vwords) * (
             -(-fp.v_cap // 128) * 128 if pallas else fp.v_cap)
+        fetch = (bpart, fp)
     else:
         raise SpGEMMError(f"unknown b_strategy {b_strategy!r}")
+    comm.check_same(mesh, "shard plans", A, B, part, plans, fetch)
     plan_s = time.perf_counter() - t0
 
     use_fill = bucketed_ops.needs_pairs(plans[0])
     wrows_max = bucketed_ops.pairs_wrows_max(plans[0])
-    _upload(plans, devs)
-    a_val = _put(part.val, devs)
+    _upload(plans, mesh)
+    a_val = comm.put(part.val, mesh)
     kern = functools.partial(_shard_bucketed_kernel, m_cap=plans[0].m_cap,
                              nnz_cap=total, rows_local=R, route=route)
 
     def fill_streams(bc, bv):
-        return ([bucketed_ops.pairs_planar_device(c, v, vwords, wrows_max)
-                 for c, v in zip(bc, bv)] if use_fill else [None] * D)
+        return (_each(lambda c, v: bucketed_ops.pairs_planar_device(
+            c, v, vwords, wrows_max), bc, bv) if use_fill else [None] * D)
 
     if b_strategy == "replicate":
-        b_col = _replicate(B.col.astype(np.int32), devs)
-        b_val = _replicate(B.val.astype(np_dt), devs)
+        b_col = comm.replicate(B.col.astype(np.int32), mesh)
+        b_val = comm.replicate(B.val.astype(np_dt), mesh)
         # replicated B: the fill stream is shard-independent, built once
         # on the host
-        pairs = (_replicate(bucketed_ops.build_pairs_planar(
-            B.col, B.val.astype(np_dt), vwords, wrows_max), devs)
+        pairs = (comm.replicate(bucketed_ops.build_pairs_planar(
+            B.col, B.val.astype(np_dt), vwords, wrows_max), mesh)
             if use_fill else [None] * D)
 
         def payload(b_col, b_val, pairs):
@@ -669,40 +680,50 @@ def _spgemm_dist_bucketed(A: CSR, B: CSR, mesh: Mesh,
 
         args = (b_col, b_val, pairs)
     elif b_strategy == "allgather":
-        def payload(b_col_l, b_val_l):
-            bc, bv = all_gather(b_col_l, devs), all_gather(b_val_l, devs)
+        gather = comm.Gather(mesh, _each(lambda c, v: (c, v),
+                                         comm.put(bpart.col, mesh),
+                                         comm.put(bpart.val, mesh)))
+
+        def payload():
+            g = gather()
+            bc, bv = _part(g, 0), _part(g, 1)
             return bc, bv, fill_streams(bc, bv)
 
-        args = (_put(bpart.col, devs), _put(bpart.val, devs))
+        args = ()
     else:                                       # ragged
         vdtype = config.vdtype
+        exchange = comm.Exchange(mesh, kernel=pallas)
 
         def payload(b_col_l, b_val_l, send_src):
-            pc = [c[s] for c, s in zip(b_col_l, send_src)]   # [D, v_cap]
-            pv = [v[s] for v, s in zip(b_val_l, send_src)]
+            pc = _each(lambda c, s: c[s], b_col_l, send_src)   # [D, v_cap]
+            pv = _each(lambda v, s: v[s], b_val_l, send_src)
             if pallas:
                 # one halo_exchange launch: columns and the values' raw
                 # words packed side by side
                 recv = remote_fetch.exchange_planes(
-                    [[c] + [w.reshape(c.shape) for w in
-                            bucketed_ops._words(v.reshape(-1))]
-                     for c, v in zip(pc, pv)], n_devices=D)
-                rc = [r[0] for r in recv]
-                rv = [bucketed_ops._from_words(r[1:], vdtype)
-                      for r in recv]
+                    _each(lambda c, v: [c] + [
+                        w.reshape(c.shape) for w in
+                        bucketed_ops._words(v.reshape(-1))], pc, pv),
+                    n_devices=D, exchange=exchange.planes)
+                rc = _part(recv, 0)
+                rv = _each(lambda r: bucketed_ops._from_words(r[1:], vdtype),
+                           recv)
             else:
-                rc, rv = all_to_all(pc, devs), all_to_all(pv, devs)
+                got = exchange(_each(lambda c, v: (c, v), pc, pv))
+                rc, rv = _part(got, 0), _part(got, 1)
             # payload address space: [local block | halo from each shard]
-            bc = [torch.cat([c, r.reshape(-1)]) for c, r in zip(b_col_l, rc)]
-            bv = [torch.cat([v, r.reshape(-1)]) for v, r in zip(b_val_l, rv)]
+            bc = _each(lambda c, r: torch.cat([c, r.reshape(-1)]),
+                       b_col_l, rc)
+            bv = _each(lambda v, r: torch.cat([v, r.reshape(-1)]),
+                       b_val_l, rv)
             return bc, bv, fill_streams(bc, bv)
 
-        args = (_put(bpart.col, devs), _put(bpart.val, devs),
-                _put(fp.send_src.astype(np.int64), devs))
+        args = (comm.put(bpart.col, mesh), comm.put(bpart.val, mesh),
+                comm.put(fp.send_src.astype(np.int64), mesh))
 
     def program(a_val, *payload_args):
         bc, bv, pairs = payload(*payload_args)
-        return [kern(p, a, c, v, q)
+        return [None if a is None else kern(p, a, c, v, q)
                 for p, a, c, v, q in zip(plans, a_val, bc, bv, pairs)]
 
     args = (a_val,) + args
@@ -711,7 +732,7 @@ def _spgemm_dist_bucketed(A: CSR, B: CSR, mesh: Mesh,
         state.update(fn=program, args=args, R=R, total=total,
                      bounds=bounds, plans=plans, plan_s=plan_s,
                      exchanged_words=words)
-    return _assemble(A, B, outs, bounds)
+    return _assemble(A, B, outs, bounds, mesh)
 
 
 def _spgemm_dist_ragged_overlap(A: CSR, B: CSR, mesh: Mesh,
@@ -800,6 +821,8 @@ def _spgemm_dist_ragged_overlap(A: CSR, B: CSR, mesh: Mesh,
             and os.environ.get("MHSPGEMM_FORCE_OVERLAP") != "1"):
         return _spgemm_dist_bucketed(A, B, mesh, config, "ragged", state)
 
+    comm.check_same(mesh, "overlap shard plans", A, B, part, bpart, fp,
+                    plans_l, plans_h)
     plan_s = time.perf_counter() - t0
     m_cap = plans_l[0].m_cap
     area1 = _area(plans_l)
@@ -814,28 +837,31 @@ def _spgemm_dist_ragged_overlap(A: CSR, B: CSR, mesh: Mesh,
     use_fill_h = bucketed_ops.needs_pairs(plans_h[0])
     wrows_l = bucketed_ops.pairs_wrows_max(plans_l[0])
     wrows_h = bucketed_ops.pairs_wrows_max(plans_h[0])
-    _upload(plans_l, devs)
-    _upload(plans_h, devs)
+    _upload(plans_l, mesh)
+    _upload(plans_h, mesh)
+    local = comm.local_shards(mesh)
     # stage 1's fill streams: each shard's local block, built on the host
     # and on the device before the exchange
     pairs_l = ([torch.from_numpy(bucketed_ops.build_pairs_planar(
         bpart.col[d], bpart.val[d], vwords, wrows_l)).to(devs[d])
-        for d in range(D)] if use_fill_l else [None] * D)
-    args = (_put(part.val, devs), _put(slab_start, devs),
-            _put(bpart.col, devs), _put(bpart.val, devs),
-            _put(fp.send_src.astype(np.int64), devs), pairs_l)
+        if d in local else None for d in range(D)] if use_fill_l
+        else [None] * D)
+    args = (comm.put(part.val, mesh), comm.put(slab_start, mesh),
+            comm.put(bpart.col, mesh), comm.put(bpart.val, mesh),
+            comm.put(fp.send_src.astype(np.int64), mesh), pairs_l)
+    exchange = comm.Exchange(mesh)
 
     def program(a_val, slab_start, b_col_l, b_val_l, send_src, pairs_l):
-        rc = all_to_all([c[s] for c, s in zip(b_col_l, send_src)], devs)
-        rv = all_to_all([v[s] for v, s in zip(b_val_l, send_src)], devs)
-        outs = []
-        for d in range(D):
+        got = exchange(_each(lambda c, v, s: (c[s], v[s]), b_col_l,
+                             b_val_l, send_src))
+        outs = [None] * D
+        for d in local:
             dev = devs[d]
             slabs1 = bucketed_ops.bucketed_main(
                 plans_l[d], a_val[d], b_col_l[d], b_val_l[d], pairs_l[d],
                 route=route)
-            bc = torch.cat([b_col_l[d], rc[d].reshape(-1)])
-            bv = torch.cat([b_val_l[d], rv[d].reshape(-1)])
+            bc = torch.cat([b_col_l[d], got[d][0].reshape(-1)])
+            bv = torch.cat([b_val_l[d], got[d][1].reshape(-1)])
             pairs_h = (bucketed_ops.pairs_planar_device(bc, bv, vwords,
                                                         wrows_h)
                        if use_fill_h else None)
@@ -848,7 +874,7 @@ def _spgemm_dist_ragged_overlap(A: CSR, B: CSR, mesh: Mesh,
             ccol, cval = bucketed_ops.bucketed_extract(
                 slabs1 + slabs2, slab_start[d], cptr, m=m_cap,
                 nnz_cap=total)
-            outs.append((crow[:R], ccol, cval, cptr[m_cap]))
+            outs[d] = (crow[:R], ccol, cval, cptr[m_cap])
         return outs
 
     outs = program(*args)
@@ -856,7 +882,7 @@ def _spgemm_dist_ragged_overlap(A: CSR, B: CSR, mesh: Mesh,
         state.update(fn=program, args=args, R=R, total=total,
                      bounds=bounds, plans=(plans_l, plans_h), plan_s=plan_s,
                      exchanged_words=D * D * fp.v_cap * (1 + vwords))
-    return _assemble(A, B, outs, bounds)
+    return _assemble(A, B, outs, bounds, mesh)
 
 
 def _spgemm_dist_grid2d(A: CSR, B: CSR, mesh: Mesh, config: SpGEMMConfig,
@@ -927,34 +953,38 @@ def _spgemm_dist_grid2d(A: CSR, B: CSR, mesh: Mesh, config: SpGEMMConfig,
     total2 = quantize(max(1, max(caps)))
     require(total2 < 2**31, SpGEMMError,
             "per-shard product stream exceeds int32")
+    comm.check_same(mesh, "grid shard plans", A, B, part, plans, tb_col,
+                    tb_val)
     plan_s = time.perf_counter() - t0
 
-    _upload(plans, devs)
+    _upload(plans, mesh)
     kern = functools.partial(_shard_bucketed_kernel, m_cap=plans[0].m_cap,
                              nnz_cap=total2, rows_local=R, route=route)
-    args = (_put(np.repeat(part.val, Dc, axis=0), devs),
-            _put(tb_col, devs), _put(tb_val, devs))
+    # each shard gathers its cols group's column block over the rows axis
+    gather = comm.Gather(
+        mesh, _each(lambda c, v: (c, v), comm.put(tb_col, mesh),
+                    comm.put(tb_val, mesh)),
+        groups=[[r * Dc + d % Dc for r in range(Dr)]
+                for d in range(Dr * Dc)])
 
-    def program(a_val, tb_col, tb_val):
-        outs = []
-        for d in range(Dr * Dc):
-            c, dev = d % Dc, devs[d]
-            # this cols group's column block, gathered over the rows axis
-            bc = torch.cat([tb_col[r * Dc + c].to(dev) for r in range(Dr)])
-            bv = torch.cat([tb_val[r * Dc + c].to(dev) for r in range(Dr)])
-            pairs = (bucketed_ops.pairs_planar_device(bc, bv, vwords,
-                                                      wrows_max)
-                     if use_fill else None)
-            outs.append(kern(plans[d], a_val[d], bc, bv, pairs))
-        return outs
+    def shard(plan, a_val, g):
+        bc, bv = g
+        pairs = (bucketed_ops.pairs_planar_device(bc, bv, vwords, wrows_max)
+                 if use_fill else None)
+        return kern(plan, a_val, bc, bv, pairs)
 
+    def program(a_val):
+        return [None if a is None else shard(p, a, g)
+                for p, a, g in zip(plans, a_val, gather())]
+
+    args = (comm.put(np.repeat(part.val, Dc, axis=0), mesh),)
     outs = program(*args)
     if state is not None:
         state.update(fn=program, args=args, R=R, total=total2,
                      bounds=bounds, grid=(Dr, Dc), plans=plans,
                      plan_s=plan_s,
                      exchanged_words=Dr * Dc * Dr * bcap2 * (1 + vwords))
-    return _assemble2d(A, B, Dr, Dc, outs, bounds)
+    return _assemble2d(A, B, Dr, Dc, outs, bounds, mesh)
 
 
 def _dist_chunked(A: CSR, B: CSR, mesh: Mesh, config: SpGEMMConfig,

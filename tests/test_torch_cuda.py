@@ -5,7 +5,8 @@ the card, and the bucketed (with and without the fill frontend, planned
 and not), block-dense (with the windowed extraction), masked,
 DeviceCSR-level (ESC and product-granularity masked, warm calls with no
 host sync) and distributed (bucketed and ESC) engines on the card
-against the scipy oracle, and the structured catalog's repaired and
+against the scipy oracle, halo_exchange into a subset of the receiving
+shards, two ranks of ``parallel.worker`` sharing the card (CUDA IPC), and the structured catalog's repaired and
 degenerate cases through the engines, cold and warm.  They skip
 where there is no CUDA device.
 
@@ -18,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from mh_spgemm_torch import SpGEMMConfig, oracle_spgemm
+from mh_spgemm_torch import CSR, SpGEMMConfig, oracle_spgemm
 from mh_spgemm_torch.bench import gen
 from mh_spgemm_torch.ops import bucketed as bk
 from mh_spgemm_torch.ops import esc_tail as et
@@ -571,6 +572,87 @@ def test_halo_exchange_matches_plain(cuda, d, vr):
     assert rfx.halo_exchange.launches == before + 1
     for g, w in zip(got, rfx.halo_exchange_plain(sends, n_devices=d)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first,count", [(0, 8), (0, 4), (4, 4), (7, 1),
+                                         (2, 3)])
+def test_halo_exchange_subset_matches_plain(cuda, first, count):
+    """One launch into the receiving shards first .. first + count - 1
+    alone (what a process of a multi-process mesh pulls), new tensors and
+    given ones, equals the plain version's subset, exact."""
+    d = 8
+    rng = np.random.default_rng(first * 10 + count)
+    sends = [torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (d, 3, 128),
+                                           dtype=np.int64).astype(np.int32)
+                              ).to(cuda) for _ in range(d)]
+    want = rfx.halo_exchange_plain(sends, n_devices=d, dst_first=first,
+                                   dst_count=count)
+    out = [torch.empty_like(sends[0]) for _ in range(count)]
+    before = rfx.halo_exchange.launches
+    for got in (rfx.halo_exchange(sends, n_devices=d, dst_first=first,
+                                  dst_count=count),
+                rfx.halo_exchange(sends, n_devices=d, dst_first=first,
+                                  dst_count=count, out=out)):
+        torch.cuda.synchronize()
+        assert len(got) == count
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(g is o for g, o in zip(got, out))
+    assert rfx.halo_exchange.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_multiprocess_worker_on_card(cuda, tmp_path):
+    """Two ranks of ``parallel.worker`` on the card, two shards each (the
+    payload by CUDA IPC): every C equals the oracle, the ranks' Cs agree,
+    and the ragged "pallas" call launched halo_exchange in both ranks."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from mh_spgemm_torch.parallel import worker
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    calls = ("bucketed:ragged:pallas", "bucketed:ragged:xla",
+             "bucketed:allgather:xla", "bucketed:grid2d:xla",
+             "bucketed:ragged_overlap:xla:force", "esc:ragged:xla")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "mh_spgemm_torch.parallel.worker", str(port),
+         str(r), "2", "2", "--device", "cuda", "--matrix", "powerlaw",
+         "--calls", ",".join(calls), "--out", str(tmp_path), "--save-c",
+         "--timeout", "120"], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r}:\n{log[-3000:]}"
+        assert f"rank {r}: multiprocess dist OK" in log
+    A = worker.load("powerlaw")
+    ref = oracle_spgemm(A, A)
+    recs = [json.load(open(tmp_path / f"rank{r}.json")) for r in range(2)]
+    for r0, r1 in zip(*recs):
+        assert r0["call"] == r1["call"] and r0["digest"] == r1["digest"]
+        for r in range(2):
+            tag = r0["call"].replace(":", "-")
+            z = np.load(tmp_path / f"rank{r}_powerlaw_{tag}.npz")
+            C = CSR(M=int(z["shape"][0]), N=int(z["shape"][1]),
+                    ptr=z["ptr"], col=z["col"], val=z["val"])
+            assert C.equals(ref, tol=1e-9), (r, r0["call"])
+        halo = (r0["launches"]["halo_exchange"],
+                r1["launches"]["halo_exchange"])
+        if r0["call"] == "bucketed:ragged:pallas":
+            assert min(halo) > 0
+        else:
+            assert max(halo) == 0
 
 
 @pytest.mark.cuda
