@@ -16,12 +16,13 @@
    bytes and resident blocks per SM the runtime reports; the f64 kernel
    must have DMMA and keep two blocks per SM, the f32 kernel TF32 HMMA,
    both LDGSTS or UTMALDG (in each one's ``sass`` entry).  The ESC
-   tail's warp-path kernels (``tail_warp``) must use no local memory and
-   spill nothing.
+   tail's warp-path and tile-path kernels (``tail_warp``, ``tail_tile``,
+   every width and value type) must use no local memory and spill
+   nothing.
 3. Kernel phase: ``esc_tail_flat`` against its plain PyTorch version on
-   the card for w2 in {2, 4, 8, 16, 32, 64, 128, 256, 512, 2048, 8192,
-   32768, 65536} (the warp path up to 256, the tile path from 512, the
-   global path above 8192), f64 and
+   the card for w2 in {2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048,
+   4096, 8192, 32768, 65536} (the warp path up to 256, the tile path from
+   512, the global path above 8192; each line prints the path), f64 and
    f32, on duplicate-heavy, empty and all-same-key segments (keys and
    counts exact, values within 1e-9 (f64) / 1e-4 (f32)
    absolute-or-relative; whether they are bit for bit equal is
@@ -186,7 +187,23 @@
    ``torch.bmm`` of the pre-gathered pairs (kernel, bmm, bmm, kernel),
    with TFLOP/s (f64 bound: DMMA at 67 TFLOP/s; f32: three TF32 passes
    at 495 TFLOP/s, and the FFMA bound beside it), and ``block_gather`` at
-   pwtk's (``torch.index_select``).
+   pwtk's (``torch.index_select``).  Then, after the distributed phase
+   and its ``halo_exchange`` timing (the last profiled timings), the
+   tile-path phase: the two
+   suite members whose classes take the ESC tail's tile path (512 <= w2
+   <= 8192), cage15 under ``planned="off"`` (its W=512 pre class; its
+   default plan is replanned to a W=384 gather class, which takes the
+   sort tail) and cop20k_A under the default config (its W=512 gather
+   class), each cold and warm (5 calls; both Cs against the oracle's
+   digest in ``data/oracle_digest.json``, the tails' launch counts set to
+   0 before each and read after its warm calls, which must have launched
+   them), with their ``tail_classes`` lines; then both tails at cage15's
+   W=512 class (256,114,688 slots): ``esc_tail_flat`` on its frontend's
+   output and ``esc_tail`` on the same planes as ``[rows, 512]`` slabs
+   with every row full, each equal to its plain version (and the two to
+   each other) bit for bit, timed beside the plain version,
+   ``torch.sort`` of the slots with the segment folded into the key, and
+   the byte bound (the ``tile`` entry of kernel rows 1-2).
 10. CLI phase: ``python -m mh_spgemm_torch pdb1HYS --check --stats --json
    --iters 3`` in a subprocess must exit 0, pass its check on the
    block-dense engine, and print nothing of JAX; ``python -m
@@ -251,7 +268,8 @@ PROFILE_ATTEMPTS = 8
 # the pair kernels' mangled names hold these (template on the value type)
 PAIR_KERNELS = {"pair_matmul_f64": "pair_matmul_kernelIdE",
                 "pair_matmul_f32": "pair_matmul_kernelIfE"}
-W2S = (2, 4, 8, 16, 32, 64, 128, 256, 512, 2048, 8192, 32768, 65536)
+W2S = (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 32768,
+       65536)
 MATRICES = ("scircuit", "cage12", "webbase-1M")
 BD_MATRICES = ("pdb1HYS", "pwtk")
 SOURCES = ("esc_tail", "pair_matmul", "ragged_fill", "planned",
@@ -262,6 +280,13 @@ PLANNED_TIMING = "scircuit"
 MASKED_MATRICES = ("scircuit", "cage12")
 FILL_MATRIX = "cage12"
 WARM_CALLS = 20
+# the suite members whose classes take the tail's tile path, the config
+# whose plan has them, and the tail form timed at their W=512 class:
+# kernel row 1's tile entry at cage15's pre class, row 2's at cop20k_A's
+# gather class
+TILE_RUNS = (("cage15", "planned_off", "flat"),
+             ("cop20k_A", "default", "slab"))
+TILE_WARM_CALLS = 5
 BD_WARM_CALLS = 10
 DIST_WARM_CALLS = 5
 # the DeviceCSR-level engines: masked stand-ins (cage12's 29,246,941
@@ -410,8 +435,7 @@ def kernel_phase(torch, et, dev) -> dict:
             check(torch.equal(oK, pK), f"keys differ at w2={w2} {dtype}")
             check(torch.equal(cnt, pc), f"counts differ at w2={w2} {dtype}")
             err = (oV - pV).abs()
-            ok = err <= tols[dtype] * torch.clamp(pV.abs(), min=1.0)
-            check(bool(ok.all()), f"values differ at w2={w2} {dtype}: "
+            check(torch.equal(oV, pV), f"values differ at w2={w2} {dtype}: "
                   f"max abs err {float(err.max())}")
             serr = check_sorted(torch, oK, oV, cnt, keys.view(nseg, w2),
                                 vals.view(nseg, w2), tols[dtype],
@@ -420,8 +444,7 @@ def kernel_phase(torch, et, dev) -> dict:
             print(f"kernel w2={w2:6d} {str(dtype):14s} slots={k.size:8d} "
                   f"path={et.kernel_path(w2)} "
                   f"max_abs_err={float(err.max()):.3e} "
-                  f"sort_ref_err={serr:.3e} "
-                  f"exact={bool(torch.equal(oV, pV))} ok", flush=True)
+                  f"sort_ref_err={serr:.3e} exact=True ok", flush=True)
     return errs
 
 
@@ -450,8 +473,7 @@ def slab_tail_phase(torch, et, dev) -> dict:
             check(torch.equal(oK, pK), f"esc_tail keys differ at w2={w2}")
             check(torch.equal(cnt, pc), f"esc_tail counts differ at w2={w2}")
             err = (oV - pV).abs()
-            ok = err <= tols[dtype] * torch.clamp(pV.abs(), min=1.0)
-            check(bool(ok.all()), f"esc_tail values differ at w2={w2} "
+            check(torch.equal(oV, pV), f"esc_tail values differ at w2={w2} "
                   f"{dtype}: max abs err {float(err.max())}")
             live = (torch.arange(w2, device=dev)[None, :]
                     < rl.long()[:, None])
@@ -461,9 +483,9 @@ def slab_tail_phase(torch, et, dev) -> dict:
                                 f"esc_tail w2={w2} {dtype}")
             errs[dtype] = max(errs[dtype], float(err.max()))
             print(f"kernel esc_tail w2={w2:6d} {str(dtype):14s} "
-                  f"rows={rows:7d} max_abs_err={float(err.max()):.3e} "
-                  f"sort_ref_err={serr:.3e} "
-                  f"exact={bool(torch.equal(oV, pV))} ok", flush=True)
+                  f"rows={rows:7d} path={et.kernel_path(w2)} "
+                  f"max_abs_err={float(err.max()):.3e} "
+                  f"sort_ref_err={serr:.3e} exact=True ok", flush=True)
     return errs
 
 
@@ -819,79 +841,169 @@ def breakdown_phase(et, bk, states: dict, label: str = "stages") -> dict:
     return ext_ms
 
 
-def time_kernel(torch, et, bk, state) -> dict:
-    """esc_tail_flat on the widest pre class of ``state`` (cage12 under
-    planned="off", whose W=256 class is pre)."""
+def folded_sort_ms(torch, K, w2: int) -> float:
+    """``torch.sort`` of a tail's slots with the segment folded into the
+    key (segment << 32 | key, one flat int64 sort)."""
+    seg = torch.arange(K.numel() // w2, device=K.device,
+                       dtype=torch.int64).repeat_interleave(w2) << 32
+    folded = seg | K.reshape(-1).to(torch.int64)
+    del seg
+    return cuda_ms(lambda: torch.sort(folded), 5)
+
+
+def widest_pre(bk, state):
+    """The frontend's output (keys, products) of the widest pre class of
+    ``state``, and its width."""
     plan = state.plan
     i = max((j for j, c in enumerate(plan.classes) if c.pre and c.W > 1),
             key=lambda j: plan.classes[j].W * plan.classes[j].rb
             * plan.classes[j].nchunks)
-    c = plan.classes[i]
     d = plan.dev[i]
     K, prod, _ = bk.expand_pre(d["slot_src"], d["slot_aidx"], state.a_val,
                                state.b_col, state.b_val)
-    w2 = c.W
-    slots = K.numel()
-    ms = cuda_ms(lambda: et.esc_tail_flat(K, prod, w2=w2), 20)
-    plain_ms = cuda_ms(lambda: et.esc_tail_flat_plain(K, prod, w2=w2), 3,
-                       warmup=1)
-    lib_ms = cuda_ms(lambda: torch.sort(K.view(-1, w2), dim=1), 20)
-    _, _, cnt = et.esc_tail_flat_plain(K, prod, w2=w2)
-    valid = int((K < I32_MAX).sum())
-    adds = valid - int(cnt.sum())             # additions the tail must do
-    nbytes = slots * (4 + 8) * 2 + cnt.numel() * 4
+    return K, prod, plan.classes[i].W
+
+
+def time_tail(torch, et, K, prod, w2: int, label: str, rl=None) -> dict:
+    """One tail on a class's frontend output, which must equal its plain
+    version bit for bit, timed beside the plain version, ``torch.sort``
+    by segment and with the segment folded into the key, and its bound.
+    With ``rl`` None, ``esc_tail_flat`` on the flat planes of a pre class;
+    else ``esc_tail`` on ``[rows, w2]`` slabs with row counts ``rl``.  The
+    bound's bytes: each key the function reads (every key of the flat
+    form; those under the row counts of the slab form, and the counts),
+    the value of each live slot among them (an empty slot's value is
+    never used), every output slot's key and value written and the
+    counts written."""
+    name = "esc_tail_flat" if rl is None else "esc_tail"
+    fn, plain = getattr(et, name), getattr(et, name + "_plain")
+    args = (K, prod) if rl is None else (K, prod, rl)
+    got = fn(*args, w2=w2)
+    want = plain(*args, w2=w2)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"{name} differs from its plain version on {label} W={w2}")
+    cnt = want[2]
+    del got, want
+    ms = cuda_ms(lambda: fn(*args, w2=w2), 20)
+    plain_ms = cuda_ms(lambda: plain(*args, w2=w2), 3, warmup=1)
+    Kr = K.view(-1, w2)
+    lib_ms = cuda_ms(lambda: torch.sort(Kr, dim=1), 20)
+    sort_ms = folded_sort_ms(torch, K, w2)
+    rows, slots = Kr.shape[0], K.numel()
+    live = Kr < I32_MAX
+    if rl is None:
+        keys_read, extra = slots, cnt.numel() * 4
+    else:
+        under = torch.arange(w2, device=K.device)[None, :] < rl[:, None]
+        live &= under
+        keys_read, extra = int(under.sum()), rows * 8
+        del under
+    nlive = int(live.sum())
+    del live
+    adds = nlive - int(cnt.sum())             # additions the tail must do
+    esize = prod.element_size()
+    nbytes = keys_read * 4 + nlive * esize + slots * (4 + esize) + extra
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = adds / FP64_FLOPS * 1e3
-    print(f"timing esc_tail_flat on cage12 (planned off) W={w2} "
-          f"slots={slots}: "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sort "
-          f"{lib_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
-          f"({nbytes} B, {adds} adds)", flush=True)
+    print(f"timing {name} on {label} W={w2} ({rows} rows, {slots} slots, "
+          f"{nlive} live) path={et.kernel_path(w2)}: {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms (equal bit for bit), torch.sort by segment "
+          f"{lib_ms:.4f} ms, folded {sort_ms:.4f} ms, bound "
+          f"{max(bytes_ms, ops_ms):.4f} ms ({nbytes} B, {adds} adds)",
+          flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "sort_folded_ms": sort_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "w2": w2, "slots": slots}
+            "w2": w2, "slots": slots, "live_slots": nlive,
+            "path": et.kernel_path(w2), "exact": True}
+
+
+def widest_front(bk, state, want):
+    """The frontend's output of the widest class of ``state`` (by slots)
+    with W > 1 that ``want`` picks, and its width."""
+    plan = state.plan
+    i = max((j for j, c in enumerate(plan.classes) if want(c) and c.W > 1),
+            key=lambda j: plan.classes[j].W * plan.classes[j].rb
+            * plan.classes[j].nchunks)
+    c, d = plan.classes[i], plan.dev[i]
+    return bk.class_front(c, d, state.a_val, state.b_col, state.b_val,
+                          state.pairs), c.W
+
+
+def tile_phase(torch, mt, et, bk, dev) -> tuple:
+    """The suite members of ``TILE_RUNS`` under the config whose plan
+    sends their classes through the tail's tile path: each cold and warm
+    (``TILE_WARM_CALLS``), both Cs against the oracle's digest in
+    ``data/oracle_digest.json``; the tails' launch counts set to 0 before
+    each and read after its warm calls; its ``tail_classes`` line; then
+    its named tail form timed at its widest class of that form on the
+    tile path, on the frontend's own output.  Returns (flat timing, slab
+    timing, launches)."""
+    from mh_spgemm_torch.baseline import digest_check, digest_device
+    from mh_spgemm_torch.bench.suite import oracle_entry
+    from mh_spgemm_torch.io.suites import load_matrix
+    from mh_spgemm_torch.pipeline import spgemm_bucketed
+    tails = (et.esc_tail_flat, et.esc_tail)
+    launches = {fn.__name__: 0 for fn in tails}
+    timed = {}
+    for name, which, form in TILE_RUNS:
+        A = load_matrix(name)
+        cfg = (mt.SpGEMMConfig(planned="off") if which == "planned_off"
+               else mt.SpGEMMConfig())
+        want = oracle_entry(name, A, A)["digest"]
+        for fn in tails:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        C, state = spgemm_bucketed(A, A, config=cfg, device=dev)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        ok, why = digest_check(digest_device(C), want)
+        check(ok, f"{name} ({which}) cold: {why}")
+        del C
+        out = {}
+
+        def warm():
+            out["C"], _ = spgemm_bucketed(A, A, config=cfg, state=state)
+
+        ms = cuda_ms(warm, TILE_WARM_CALLS, warmup=1)
+        ok, why = digest_check(digest_device(out["C"]), want)
+        check(ok, f"{name} ({which}) warm: {why}")
+        del out
+        ran = {fn.__name__: fn.launches for fn in tails}
+        check(sum(ran.values()) > 0, f"{name} ({which}) launched no tail")
+        for k, v in ran.items():
+            launches[k] += v
+        print("tile_matrix " + json.dumps({
+            "matrix": name, "config": which, "cold_ms": cold_ms,
+            "warm_ms": ms, "launches": ran, "check": "pass",
+            "classes": [(c.W, c.frontend, c.nchunks * c.rb)
+                        for c in state.plan.classes]}), flush=True)
+        print("tail_classes " + json.dumps({
+            "matrix": name, "config": which,
+            "classes": tail_classes(et, bk, state)}), flush=True)
+        label = f"{name} ({which})"
+        if form == "flat":
+            K, prod, w2 = widest_pre(bk, state)
+            rl = None
+        else:
+            (K, prod, rl), w2 = widest_front(bk, state,
+                                             lambda c: not c.pre)
+        check(et.kernel_path(w2) == "tile",
+              f"{label}'s widest {form} class W={w2} is not on the tile path")
+        timed[form] = time_tail(torch, et, K, prod, w2, label, rl=rl)
+        del K, prod, rl, state, A
+        torch.cuda.empty_cache()
+    check(all(v > 0 for v in launches.values()),
+          f"the tile phase launched a tail no time: {launches}")
+    return timed["flat"], timed["slab"], launches
 
 
 def time_slab_tail(torch, et, bk, state) -> dict:
     """The slab form on the forced-fill plan's widest fill class, on the
     fill frontend's own output (raw slab, the plan's row counts)."""
-    plan = state.plan
-    i = max((j for j, c in enumerate(plan.classes) if c.fill and c.W > 1),
-            key=lambda j: plan.classes[j].W * plan.classes[j].rb
-            * plan.classes[j].nchunks)
-    c, d = plan.classes[i], plan.dev[i]
-    K, prod, rl = bk.class_front(c, d, state.a_val, state.b_col,
-                                 state.b_val, state.pairs)
-    w2 = c.W
-    ms = cuda_ms(lambda: et.esc_tail(K, prod, rl, w2=w2), 20)
-    plain_ms = cuda_ms(lambda: et.esc_tail_plain(K, prod, rl, w2=w2), 3,
-                       warmup=1)
-    lib_ms = cuda_ms(lambda: torch.sort(K, dim=1), 20)
-    oK, oV, cnt = et.esc_tail(K, prod, rl, w2=w2)
-    pK, pV, pc = et.esc_tail_plain(K, prod, rl, w2=w2)
-    check(torch.equal(oK, pK) and torch.equal(cnt, pc),
-          "esc_tail differs from its plain version on the fill class")
-    err = float((oV - pV).abs().max())
-    check(err <= 1e-9 * max(1.0, float(pV.abs().max())),
-          f"esc_tail values differ on the fill class: {err}")
-    valid = int(rl.clamp(max=w2).sum())
-    adds = valid - int(cnt.sum())
-    slots = K.numel()
-    # the kernel reads only the live slots (under row_len), writes every
-    # slot, reads row_len and writes the counts
-    nbytes = (valid + slots) * (4 + 8) + K.shape[0] * 4 * 2
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = adds / FP64_FLOPS * 1e3
-    print(f"timing esc_tail on {FILL_MATRIX}'s forced-fill W={w2} class "
-          f"({K.shape[0]} rows, {slots} slots): {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, torch.sort {lib_ms:.4f} ms, bound "
-          f"{max(bytes_ms, ops_ms):.4f} ms ({nbytes} B, {adds} adds); "
-          f"kernel vs plain max abs err {err:.3e}", flush=True)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "w2": w2, "slots": slots, "max_abs_err_main_path": err}
+    (K, prod, rl), w2 = widest_front(bk, state, lambda c: c.fill)
+    return time_tail(torch, et, K, prod, w2,
+                     f"{FILL_MATRIX}'s forced-fill class", rl=rl)
 
 
 def time_fill(torch, rf, bk, state) -> dict:
@@ -2445,10 +2557,13 @@ def main() -> int:
         clock[0] = now
 
     ptxas = build_phase(_build)
-    warp = [k for k in ptxas["esc_tail"] if "9tail_warp" in k["kernel"]]
-    check(len(warp) == 16 and all(k["spill_bytes"] == 0
-                                  and k["stack_bytes"] == 0 for k in warp),
-          f"the tail's warp path spills or uses local memory: {warp}")
+    for tag, count in (("9tail_warp", 16), ("9tail_tile", 10)):
+        ks = [k for k in ptxas["esc_tail"] if tag in k["kernel"]]
+        check(len(ks) == count and all(k["spill_bytes"] == 0
+                                       and k["stack_bytes"] == 0
+                                       for k in ks),
+              f"the tail's {tag[1:]} kernels spill or use local memory "
+              f"(or are not {count}): {ks}")
     sass = sass_phase(torch, _build, pm)
     done("build and SASS")
     bd_mats = {name: load_matrix(name) for name in BD_MATRICES}
@@ -2472,7 +2587,8 @@ def main() -> int:
     done("DeviceCSR engines and spgemm_dist(engine='esc')")
     ext_ms = breakdown_phase(et, bk, states)
     breakdown_phase(et, bk, off_states, label="stages_planned_off")
-    t = time_kernel(torch, et, bk, off_states[FILL_MATRIX])
+    t = time_tail(torch, et, *widest_pre(bk, off_states[FILL_MATRIX]),
+                  label=f"{FILL_MATRIX} (planned off)")
     del off_states
     tf = time_fill(torch, rf, bk, states[FILL_MATRIX])
     tp = time_planned(torch, pn, bk, states[PLANNED_TIMING])
@@ -2499,6 +2615,8 @@ def main() -> int:
     th = time_halo(torch, rfx, dist_states)
     del mats, refs, dist_states
     done("distributed and halo_exchange timing")
+    tt, tts, tile_launches = tile_phase(torch, mt, et, bk, dev)
+    done("tile path: cage15 and cop20k_A")
     torch.cuda.empty_cache()          # the ranks below share the card
     mp = multiprocess_phase(digests)
     done("multi-process spgemm_dist")
@@ -2516,6 +2634,7 @@ def main() -> int:
         name: {k: v for k, v in row.items() if k.startswith("extract")}
         for name, row in ext_ms.items()}))
     tail_by_phase = {"bucketed": launches["esc_tail"],
+                     "tile": tile_launches["esc_tail"],
                      "forced_fill": fill_launches["esc_tail"],
                      "distributed": dist_launches["esc_tail"],
                      "multiprocess": mp["launches"]["esc_tail"]}
@@ -2533,16 +2652,19 @@ def main() -> int:
         "source": "mh_spgemm_torch/csrc/esc_tail.cu",
         "replaces": "mh_spgemm_tpu/ops/esc_tail.py:234",
         "launches": launches["esc_tail_flat"]
-        + mp["launches"]["esc_tail_flat"],
+        + tile_launches["esc_tail_flat"] + mp["launches"]["esc_tail_flat"],
         "launches_by_phase": {
             "bucketed": launches["esc_tail_flat"],
+            "tile": tile_launches["esc_tail_flat"],
             "multiprocess": mp["launches"]["esc_tail_flat"]},
         "max_abs_err": errs[torch.float64],
         "max_abs_err_f32": errs[torch.float32],
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
-        "timed_w2": t["w2"], "timed_slots": t["slots"]}, {
+        "timed_w2": t["w2"], "timed_slots": t["slots"],
+        "timed_on": f"{FILL_MATRIX} (planned off), {t['path']} path",
+        "tile": dict(tt, timed_on="cage15 (planned off), pre class")}, {
         "name": "esc_tail", "route": "cuda",
         "source": "mh_spgemm_torch/csrc/esc_tail.cu",
         "replaces": "mh_spgemm_tpu/ops/esc_tail.py:286",
@@ -2553,7 +2675,9 @@ def main() -> int:
         "ms": ts["ms"], "plain_ms": ts["plain_ms"],
         "bound_ms": ts["bound_ms"], "bound_by": ts["bound_by"],
         "library_ms": ts["library_ms"],
-        "timed_w2": ts["w2"], "timed_slots": ts["slots"]}, {
+        "timed_w2": ts["w2"], "timed_slots": ts["slots"],
+        "timed_on": f"{FILL_MATRIX} forced fill W={ts['w2']}",
+        "tile": dict(tts, timed_on="cop20k_A (default), gather class")}, {
         "name": "ragged_fill", "route": "cuda",
         "source": "mh_spgemm_torch/csrc/ragged_fill.cu",
         "replaces": "mh_spgemm_tpu/ops/ragged_fill.py:156",

@@ -34,28 +34,56 @@
 //   * warp (w2 <= 256, tail_warp): one warp holds a tile of 256 slots,
 //     8 a lane (slot lane*8 + r in register r), with 256 / w2 whole
 //     segments.  Block barriers and a shared-memory round trip per
-//     stage would bound it (the tile path below reads and writes every
-//     slot in shared memory at each of the 36 stages), so the network
-//     runs in registers: partners 1-4 apart are compare-exchanges inside
-//     a lane, partners 8-128 apart __shfl_xor_sync across lanes, each a
-//     min or max of the keys that moves the slot index only where the
-//     key changed.  The sort moves (key, slot index) only; the values
-//     wait in a per-warp stage in shared memory (2 KB in f64), loaded
-//     with 16-byte lane loads, and each is fetched once in sorted order.
-//     A max-scan of run-head positions turns key[i-d] == key[i] into
+//     stage would bound it (the global path below reads and writes every
+//     slot at each of the network's stages), so the network runs in
+//     registers: partners 1-4 apart are compare-exchanges inside a lane,
+//     partners 8-128 apart __shfl_xor_sync across lanes, each a min or
+//     max of the keys that moves the slot index only where the key
+//     changed.  The sort moves (key, slot index) only; the values wait in
+//     a per-warp stage in shared memory (2 KB in f64), loaded with
+//     16-byte lane loads, and each is fetched once in sorted order.  A
+//     max-scan of run-head positions turns key[i-d] == key[i] into
 //     i - d >= head(i), so the scan passes move values only (shuffles
 //     for d >= 8).  The packed output is staged in shared memory and
 //     stored with 16-byte lane stores.  Warps are independent: no
 //     __syncthreads.  What bounds it is instruction issue in the
 //     network, chiefly its 15 cross-lane stages; the loads, stage and
 //     stores alone run near the byte bound.
-//   * tile (512 <= w2 <= 8192, tail_smem): a block loads a tile of
-//     max(w2, 1024) slots into dynamic shared memory once and sorts,
-//     scans and packs there, with a __syncthreads per stage; bounded by
-//     those barriers and the shared-memory traffic of every stage.
+//   * tile (512 <= w2 <= 8192, tail_tile): the warp path widened to a
+//     block.  A block holds a tile of max(w2, 2048) slots, 256 a warp in
+//     the warp path's register layout (8 warps, 4 segments at w2 = 512;
+//     32 warps at 8192), and every warp runs the warp path's steps, the
+//     same device functions, on its 256 slots.  What a warp cannot do
+//     alone goes through shared memory with one __syncthreads each:
+//     the network's stages with partners 256 or more apart (the partner
+//     is the same lane and register of warp w ^ (j / 256); 1 stage at
+//     w2 = 512, 15 at 8192), each an exchange of (key, slot index) pairs
+//     in register-major order, so a warp's accesses are contiguous; the
+//     keys next to each warp's edges and each warp's last head and count
+//     of valid heads (two barriers), from which every warp takes the
+//     carries of the earlier warps of its segment; and, only where a run
+//     crosses a warp's edge (__syncthreads_or says so), each scan pass:
+//     for d < 256 the last d slots of every warp, for d >= 256 every
+//     slot.  The values wait in a block-wide stage of 8 B a slot in f64,
+//     fetched once in sorted order; the keys wait there during the scan;
+//     the packed output is staged in shared memory (any warp may write a
+//     run into another warp's part of its segment) and each warp stores
+//     its part with 16-byte lane stores.  Shared memory: the value stage
+//     and two 8-byte exchange buffers, 24 B a slot in f64 (48 KB at w2 <=
+//     2048, 192 KB at 8192), where the earlier kernel kept 28 B a slot
+//     and passed every slot through it at every one of its 45-91 stages
+//     and 9-13 passes, with half the threads idle in each stage.  A block
+//     of 1024 threads (w2 = 8192) leaves 64 registers a thread, so there
+//     the ranks' bits also wait in shared memory during the scan.  At
+//     w2 = 512 it runs at about 2.3 times the byte bound on an H100 (every
+//     key read, the values of live slots read, every slot written;
+//     PERF.md); its in-warp network has 20 cross-lane stages there, the
+//     warp path's 15.
 //   * global (w2 > 8192, tail_global): a segment does not fit one
 //     block's shared memory; the same algorithm in a global scratch
-//     buffer that the caller allocates, one block per segment.
+//     buffer that the caller allocates, one block per segment, a
+//     __syncthreads per stage and pass (bitonic_segments,
+//     accumulate_and_pack).
 //
 // The slab form (row_len given) differs only in the load: the TPU kernel
 // masked the keys inside the kernel too, so its callers could hand over
@@ -71,12 +99,12 @@
 namespace {
 
 constexpr int kEmpty = 0x7fffffff;
-constexpr int kThreads = 1024;
-constexpr int kMinTile = 1024;
-constexpr int kSmemMaxW2 = 8192;    // widest segment held in shared memory
-constexpr int kWarpMaxW2 = 256;     // widest segment of the warp path
-constexpr int kWarpSlots = 256;     // slots of one warp's tile, 8 a lane
-constexpr int kWarpThreads = 128;   // the warp path's blocks: 4 warps
+constexpr int kThreads = 1024;       // the global path's blocks
+constexpr int kSmemMaxW2 = 8192;     // widest segment of the tile path
+constexpr int kWarpMaxW2 = 256;      // widest segment of the warp path
+constexpr int kWarpSlots = 256;      // slots of one warp's tile, 8 a lane
+constexpr int kWarpThreads = 128;    // the warp path's blocks: 4 warps
+constexpr int kTileMinSlots = 2048;  // the tile path's narrowest block tile
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // Slot g is live unless a row count is given and g lies at or past its
@@ -87,7 +115,8 @@ __device__ __forceinline__ bool slot_live(const int* row_len, long long g,
          static_cast<int>(g & (w2 - 1)) < row_len[g / w2];
 }
 
-// Sort each aligned w2-wide segment of key[0..n) ascending, moving val.
+// The global path's steps.  Sort each aligned w2-wide segment of
+// key[0..n) ascending, moving val.
 template <typename V>
 __device__ void bitonic_segments(int* key, V* val, int n, int w2) {
   for (int k = 2; k <= w2; k <<= 1) {
@@ -167,31 +196,6 @@ __device__ void accumulate_and_pack(const int* key, V* v0, V* v1, int* c0,
   }
 }
 
-// w2 <= kSmemMaxW2: one tile of `tile` slots per block, in shared memory.
-template <typename V>
-__global__ void __launch_bounds__(kThreads)
-tail_smem(const int* __restrict__ keys, const V* __restrict__ vals,
-          const int* __restrict__ row_len, int* out_key, V* out_val,
-          int* out_count, long long slots, int w2, int tile) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  V* v0 = reinterpret_cast<V*>(smem);
-  V* v1 = v0 + tile;
-  int* key = reinterpret_cast<int*>(v1 + tile);
-  int* c0 = key + tile;
-  int* c1 = c0 + tile;
-  const long long g0 = static_cast<long long>(blockIdx.x) * tile;
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const long long g = g0 + i;
-    const bool live = g < slots && slot_live(row_len, g, w2);
-    key[i] = live ? keys[g] : kEmpty;
-    v0[i] = live ? vals[g] : V(0);
-  }
-  __syncthreads();
-  bitonic_segments(key, v0, tile, w2);
-  accumulate_and_pack(key, v0, v1, c0, c1, tile, w2, g0, slots, out_key,
-                      out_val, out_count);
-}
-
 // w2 > kSmemMaxW2: one segment per block, worked in global scratch laid
 // out as [v0 | v1 | key | c0 | c1], each `slots` long.
 template <typename V>
@@ -218,10 +222,12 @@ tail_global(const int* __restrict__ keys, const V* __restrict__ vals,
                       out_val, out_count);
 }
 
-// Index in a warp's stage of slot s, for elements of T: 16-byte chunks
+// Index in a stage of slot s, for elements of T: 16-byte chunks
 // XOR-swizzled by bits 3-5 of the chunk index, so that 32 lanes reading
 // one register position of consecutive sorted slots (lane*8 + r) spread
-// over the banks, while each chunk stays whole for 16-byte copies.
+// over the banks, while each chunk stays whole for 16-byte copies.  The
+// swizzle stays inside each 128-byte group, so a warp's 256 slots at
+// offset 256*w of a block's stage are laid out as a warp's own stage.
 template <typename T>
 __device__ __forceinline__ int stage_pos(int s) {
   constexpr int per = 16 / sizeof(T);
@@ -236,39 +242,30 @@ struct __align__(16) WarpStage {
   int key[kWarpSlots];
 };
 
-// w2 <= kWarpMaxW2: one tile of 256 slots per warp, in registers.  `vec`
-// says that all four planes are 16-byte aligned, so that a whole tile
-// moves with 16-byte lane loads and stores; the last, partial tile and
-// unaligned planes go slot by slot.
-template <typename V, int kLogW2>
-__global__ void __launch_bounds__(kWarpThreads)
-tail_warp(const int* __restrict__ keys, const V* __restrict__ vals,
-          const int* __restrict__ row_len, int* __restrict__ out_key,
-          V* __restrict__ out_val, int* __restrict__ out_count,
-          long long slots, bool vec) {
-  constexpr int kW2 = 1 << kLogW2;
-  constexpr int kValChunks = kWarpSlots * sizeof(V) / 16;
-  __shared__ WarpStage<V> stages[kWarpThreads / 32];
-  WarpStage<V>& st = stages[threadIdx.x >> 5];
-  const int lane = threadIdx.x & 31;
-  const long long g0 =
-      (static_cast<long long>(blockIdx.x) * (kWarpThreads / 32) +
-       (threadIdx.x >> 5)) * kWarpSlots;
-  if (g0 >= slots) return;
-  const int n = slots - g0 < kWarpSlots ? static_cast<int>(slots - g0)
-                                        : kWarpSlots;
-  const bool whole = vec && n == kWarpSlots;
+// The register tile shared by the warp and tile paths: a warp holds 256
+// slots, slot pos0 + r in register r of its lane, where pos0 = lane*8 on
+// the warp path and 256*warp + lane*8 on the tile path (positions count
+// from the first slot of the block's tile there).  Segments are aligned
+// to their width in both, so bit k of a position is bit k of the slot's
+// index in its segment for every k < w2.
 
-  // 1. keys into registers (slot lane*8 + r), values into the stage
-  int key[8];
+// Step 1: a warp's keys into registers and its values into `sval`, the
+// warp's 256-value stage, from global slot g0 (n of the 256 are slots;
+// the rest count as empty).  `whole`: 16-byte lane loads.
+template <typename V>
+__device__ __forceinline__ void load_tile(const int* __restrict__ keys,
+                                          const V* __restrict__ vals,
+                                          long long g0, int n, bool whole,
+                                          int lane, int (&key)[8], V* sval) {
   if (whole) {
+    constexpr int kValChunks = kWarpSlots * sizeof(V) / 16;
     const int4* kp = reinterpret_cast<const int4*>(keys + g0) + 2 * lane;
     const int4 a = kp[0];
     const int4 b = kp[1];
     key[0] = a.x; key[1] = a.y; key[2] = a.z; key[3] = a.w;
     key[4] = b.x; key[5] = b.y; key[6] = b.z; key[7] = b.w;
     const int4* vp = reinterpret_cast<const int4*>(vals + g0);
-    int4* sp = reinterpret_cast<int4*>(st.val);
+    int4* sp = reinterpret_cast<int4*>(sval);
 #pragma unroll
     for (int q = 0; q < kValChunks / 32; ++q) {
       const int c = q * 32 + lane;
@@ -281,102 +278,126 @@ tail_warp(const int* __restrict__ keys, const V* __restrict__ vals,
       key[r] = s < n ? keys[g0 + s] : kEmpty;
     }
     for (int s = lane; s < kWarpSlots; s += 32) {
-      st.val[stage_pos<V>(s)] = s < n ? vals[g0 + s] : V(0);
+      sval[stage_pos<V>(s)] = s < n ? vals[g0 + s] : V(0);
     }
   }
-  if (row_len != nullptr) {
-    if constexpr (kW2 >= 8) {           // a lane's 8 slots share one row
-      const int s = lane * 8;
-      const int len = s < n ? row_len[(g0 + s) >> kLogW2] : 0;
+}
+
+// The slab form: slots at or past their row's count become empty.  pos0
+// is the lane's first position (a multiple of 8), g0 the warp's first
+// global slot.
+template <int kLogW2>
+__device__ __forceinline__ void mask_rows(const int* __restrict__ row_len,
+                                          long long g0, int n, int lane,
+                                          int pos0, int (&key)[8]) {
+  constexpr int kW2 = 1 << kLogW2;
+  if constexpr (kW2 >= 8) {             // a lane's 8 slots share one row
+    const int s = lane * 8;
+    const int len = s < n ? row_len[(g0 + s) >> kLogW2] : 0;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      if (((pos0 + r) & (kW2 - 1)) >= len) key[r] = kEmpty;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int s = lane * 8 + r;
+      if (s < n && (s & (kW2 - 1)) >= row_len[(g0 + s) >> kLogW2]) {
+        key[r] = kEmpty;
+      }
+    }
+  }
+}
+
+// Step 2 inside a warp: the compare-exchange stages j = min(k, 256)/2,
+// ..., 2, 1 of the merge of runs of k = 2^lk slots, on (key, slot index).
+// Each keeps the minimum or the maximum of the two keys and moves the
+// slot index only where its key changed, so ties never swap.  A run of k
+// slots sorts ascending where bit k of its position is clear; the last
+// merge (k == w2) ascends everywhere.
+template <int kW2>
+__device__ __forceinline__ void warp_merge(int (&key)[8], int (&src)[8],
+                                           int lane, int pos0, int lk) {
+  const int k = 1 << lk;
+  const bool lane_asc = k == kW2 || (pos0 & k) == 0;
+#pragma unroll
+  for (int lj = (lk < 8 ? lk : 8) - 1; lj >= 0; --lj) {
+    const int j = 1 << lj;
+    if (j >= 8) {                       // partner in lane ^ (j / 8)
+      const bool keep_min = ((lane & (j >> 3)) == 0) == lane_asc;
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
-        if (((s + r) & (kW2 - 1)) >= len) key[r] = kEmpty;
+        const int pk = __shfl_xor_sync(kFullMask, key[r], j >> 3);
+        const int ps = __shfl_xor_sync(kFullMask, src[r], j >> 3);
+        const int nk = keep_min ? min(key[r], pk) : max(key[r], pk);
+        if (nk != key[r]) src[r] = ps;
+        key[r] = nk;
       }
-    } else {
+    } else {                            // partner in register r ^ j
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
-        const int s = lane * 8 + r;
-        if (s < n && (s & (kW2 - 1)) >= row_len[(g0 + s) >> kLogW2]) {
-          key[r] = kEmpty;
+        if ((r & j) != 0) continue;
+        const int l = r | j;
+        const bool asc = k >= 8 ? lane_asc : (k == kW2 || (r & k) == 0);
+        const int a = key[r];
+        const int b = key[l];
+        key[r] = asc ? min(a, b) : max(a, b);
+        key[l] = asc ? max(a, b) : min(a, b);
+        if (key[r] != a) {
+          const int t = src[r]; src[r] = src[l]; src[l] = t;
         }
       }
     }
   }
+}
 
-  // 2. the bitonic network on (key, slot index).  Each compare-exchange
-  // keeps the minimum or the maximum of the two keys and moves the slot
-  // index only where its key changed, so ties never swap.
-  int src[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) src[r] = lane * 8 + r;
-#pragma unroll
-  for (int lk = 1; lk <= kLogW2; ++lk) {
-    const int k = 1 << lk;
-    // a run of k slots sorts ascending where bit k of its position is
-    // clear; the last merge (k == w2) ascends everywhere
-    const bool lane_asc = k == kW2 || (lane & (k >> 3)) == 0;
-#pragma unroll
-    for (int lj = lk - 1; lj >= 0; --lj) {
-      const int j = 1 << lj;
-      if (j >= 8) {                     // partner in lane ^ (j / 8)
-        const bool keep_min = ((lane & (j >> 3)) == 0) == lane_asc;
-#pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          const int pk = __shfl_xor_sync(kFullMask, key[r], j >> 3);
-          const int ps = __shfl_xor_sync(kFullMask, src[r], j >> 3);
-          const int nk = keep_min ? min(key[r], pk) : max(key[r], pk);
-          if (nk != key[r]) src[r] = ps;
-          key[r] = nk;
-        }
-      } else {                          // partner in register r ^ j
-#pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          if ((r & j) != 0) continue;
-          const int l = r | j;
-          const bool asc = k >= 8 ? lane_asc : (k == kW2 || (r & k) == 0);
-          const int a = key[r];
-          const int b = key[l];
-          key[r] = asc ? min(a, b) : max(a, b);
-          key[l] = asc ? max(a, b) : min(a, b);
-          if (key[r] != a) {
-            const int t = src[r]; src[r] = src[l]; src[l] = t;
-          }
-        }
-      }
-    }
-  }
-  __syncwarp();
-
-  // 3. values in sorted order; empty slots add nothing to a written sum
-  V v[8];
+// Step 3: values in sorted order, from the stage the slot indices count
+// in; empty slots add nothing to a written sum.
+template <typename V>
+__device__ __forceinline__ void fetch_values(const int (&key)[8],
+                                             const int (&src)[8],
+                                             const V* sval, V (&v)[8]) {
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
-    v[r] = key[r] == kEmpty ? V(0) : st.val[stage_pos<V>(src[r])];
+    v[r] = key[r] == kEmpty ? V(0) : sval[stage_pos<V>(src[r])];
   }
+}
 
-  // 4. run heads: head[r] is the tile position where slot r's run
-  // starts, so key[i-d] == key[i] exactly when i - d >= head[r]
-  const int left_key = __shfl_up_sync(kFullMask, key[7], 1);
+// Step 4 inside a warp: run heads.  head[r] is the position where slot
+// r's run starts, so key[i-d] == key[i] exactly when i - d >= head[r];
+// bit r of valid_starts says that slot r starts a run of a key other
+// than 2^31-1.  left0 (tile path): the key of the slot before lane 0's
+// first, read only where that slot is not a segment's first; on the warp
+// path lane 0's first slot always starts a segment.  For w2 > 8, hx and
+// cx come out as the lanes' inclusive max-scan of their last heads and
+// sum-scan of their valid heads.
+template <int kW2>
+__device__ __forceinline__ void warp_runs(const int (&key)[8], int lane,
+                                          int pos0, int left0,
+                                          unsigned& valid_starts,
+                                          int (&head)[8], int& hx, int& cx) {
+  int left_key = __shfl_up_sync(kFullMask, key[7], 1);
+  if constexpr (kW2 > kWarpMaxW2) {
+    if (lane == 0) left_key = left0;
+  }
   unsigned starts = 0;                  // bit r: slot r starts a run
-  unsigned valid_starts = 0;            // ... of a key other than 2^31-1
+  valid_starts = 0;
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
-    const bool start = ((lane * 8 + r) & (kW2 - 1)) == 0 ||
+    const bool start = ((pos0 + r) & (kW2 - 1)) == 0 ||
                        (r == 0 ? left_key : key[r - 1]) != key[r];
     starts |= static_cast<unsigned>(start) << r;
     valid_starts |= static_cast<unsigned>(start && key[r] != kEmpty) << r;
   }
-  int head[8];
   int h = -1;
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
-    if ((starts >> r) & 1) h = lane * 8 + r;
+    if ((starts >> r) & 1) h = pos0 + r;
     head[r] = h;
   }
-  int rank_in = 0;                      // valid heads in the segment's
-  if constexpr (kW2 > 8) {              // earlier lanes
-    int hx = h;                         // max-scan of the lanes' last heads
-    int cx = __popc(valid_starts);      // sum-scan of the lanes' counts
+  hx = h;
+  cx = __popc(valid_starts);
+  if constexpr (kW2 > 8) {
 #pragma unroll
     for (int lo = 0; lo < 5; ++lo) {
       const int o = 1 << lo;
@@ -387,58 +408,141 @@ tail_warp(const int* __restrict__ keys, const V* __restrict__ vals,
         cx += cy;
       }
     }
+  }
+}
+
+// The heads of earlier lanes (and, on the tile path, through head_in and
+// count_in, of the segment's earlier warps) into head[]; returns the
+// valid heads in the segment before the lane's first slot.
+template <int kW2>
+__device__ __forceinline__ int run_carry(int (&head)[8], int hx, int cx,
+                                         unsigned valid_starts, int lane,
+                                         int head_in, int count_in) {
+  if constexpr (kW2 > 8) {
     int hin = __shfl_up_sync(kFullMask, hx, 1);
-    if (lane == 0) hin = -1;
+    if constexpr (kW2 > kWarpMaxW2) {
+      hin = lane == 0 ? head_in : max(hin, head_in);
+    } else if (lane == 0) {
+      hin = -1;
+    }
 #pragma unroll
     for (int r = 0; r < 8; ++r) head[r] = max(head[r], hin);
     const int before = cx - __popc(valid_starts);
-    rank_in = before - __shfl_sync(kFullMask, before, lane & ~(kW2 / 8 - 1));
+    if constexpr (kW2 > kWarpMaxW2) return count_in + before;
+    return before - __shfl_sync(kFullMask, before, lane & ~(kW2 / 8 - 1));
+  } else {
+    return 0;
   }
+}
 
-  // 5. the Hillis-Steele passes, in the order of the other paths
+// Step 5: the Hillis-Steele passes d = 1, 2, ..., w2/2 in the order of
+// the other paths: v[i] += v[i-d] where slot i - d lies in slot i's run.
+// On the tile path (kSlots > 0) a partner may lie in another warp: with
+// `cross` (a run of the block crosses a warp's boundary; the same in
+// every thread), each pass passes through xv, two buffers of kSlots
+// values, with a __syncthreads: for d < 256 the last d slots of each
+// warp, for d >= 256 every slot.  Without `cross` no run reaches another
+// warp, so the passes stay in the warp and those of d >= 256 add nothing.
+template <typename V, int kLogW2, int kSlots>
+__device__ __forceinline__ void scan_passes(V (&v)[8], const int (&head)[8],
+                                            int lane, int pos0, int w,
+                                            V* xv, bool cross) {
+  constexpr int kW2 = 1 << kLogW2;
+  int parity = 0;
 #pragma unroll
   for (int ld = 0; ld < kLogW2; ++ld) {
     const int d = 1 << ld;
+    V* buf = xv + parity * kSlots;
+    if (d >= kWarpSlots) {              // partner in warp w - d / 256
+      if (!cross) continue;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) buf[(w * 8 + r) * 32 + lane] = v[r];
+      __syncthreads();
+      const int pw = w - (d >> 8);
+      if (pw >= 0) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const V left = buf[(pw * 8 + r) * 32 + lane];
+          if (pos0 + r - d >= head[r]) v[r] += left;
+        }
+      }
+      parity ^= 1;
+      continue;
+    }
+    const bool xwarp = kSlots > 0 && cross;
+    if (xwarp) {                        // the slots the next warp reads
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        if (lane * 8 + r >= kWarpSlots - d) buf[(w * 8 + r) * 32 + lane] = v[r];
+      }
+      __syncthreads();
+    }
     if (d < 8) {
       V up[8];
       if constexpr (kW2 > 8) {
 #pragma unroll
         for (int r = 0; r < d; ++r) {
           up[r] = __shfl_up_sync(kFullMask, v[8 - d + r], 1);
+          if (xwarp && lane == 0 && w > 0) {
+            up[r] = buf[((w - 1) * 8 + 8 - d + r) * 32 + 31];
+          }
         }
       }
 #pragma unroll
       for (int r = 7; r >= 0; --r) {
         if (r < d && kW2 <= 8) continue;  // slot i - d: an earlier segment
         const V left = r >= d ? v[r - d] : up[r];
-        if (lane * 8 + r - d >= head[r]) v[r] += left;
+        if (pos0 + r - d >= head[r]) v[r] += left;
       }
     } else {
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
-        const V left = __shfl_up_sync(kFullMask, v[r], d >> 3);
-        if (lane * 8 + r - d >= head[r]) v[r] += left;
+        V left = __shfl_up_sync(kFullMask, v[r], d >> 3);
+        if (xwarp && w > 0 && lane < (d >> 3)) {
+          left = buf[((w - 1) * 8 + r) * 32 + lane + 32 - (d >> 3)];
+        }
+        if (pos0 + r - d >= head[r]) v[r] += left;
       }
     }
+    if (xwarp) parity ^= 1;
   }
+}
 
-  // 6. pack into the stage (empty slots first), then store
-  __syncwarp();
-  {
-    int4* sk = reinterpret_cast<int4*>(st.key);
-    int4* sv = reinterpret_cast<int4*>(st.val);
-    const int4 empty_k = make_int4(kEmpty, kEmpty, kEmpty, kEmpty);
-    const int4 zero = make_int4(0, 0, 0, 0);
+// Step 6, first half: a warp's 256 slots of an output stage set empty.
+template <typename V>
+__device__ __forceinline__ void clear_stage(int* skey, V* sval, int lane) {
+  constexpr int kValChunks = kWarpSlots * sizeof(V) / 16;
+  int4* sk = reinterpret_cast<int4*>(skey);
+  int4* sv = reinterpret_cast<int4*>(sval);
+  const int4 empty_k = make_int4(kEmpty, kEmpty, kEmpty, kEmpty);
+  const int4 zero = make_int4(0, 0, 0, 0);
 #pragma unroll
-    for (int q = 0; q < kWarpSlots / 4 / 32; ++q) sk[q * 32 + lane] = empty_k;
+  for (int q = 0; q < kWarpSlots / 4 / 32; ++q) sk[q * 32 + lane] = empty_k;
 #pragma unroll
-    for (int q = 0; q < kValChunks / 32; ++q) sv[q * 32 + lane] = zero;
+  for (int q = 0; q < kValChunks / 32; ++q) sv[q * 32 + lane] = zero;
+}
+
+// Step 6: the last slot of each valid run writes (key, sum) into the
+// output stage at its segment's start + rank - 1; the last slot of each
+// segment writes the count.  right7 (tile path): the key after lane 31's
+// last slot, read only where that slot does not end a segment.  g0 and n:
+// the global slot of position 0, and the positions that are slots.
+template <typename V, int kLogW2>
+__device__ __forceinline__ void pack_runs(const int (&key)[8],
+                                          const V (&v)[8],
+                                          unsigned valid_starts,
+                                          int rank_in, int right7, int lane,
+                                          int pos0, int* skey, V* sval,
+                                          int* __restrict__ out_count,
+                                          long long g0, int n) {
+  constexpr int kW2 = 1 << kLogW2;
+  int right_key = __shfl_down_sync(kFullMask, key[0], 1);
+  if constexpr (kW2 > kWarpMaxW2) {
+    if (lane == 31) right_key = right7;
   }
-  __syncwarp();
-  const int right_key = __shfl_down_sync(kFullMask, key[0], 1);
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
-    const int i = lane * 8 + r;
+    const int i = pos0 + r;
     const bool seg_end = (i & (kW2 - 1)) == kW2 - 1;
     // valid heads from the segment's start through slot r: the run's
     // rank + 1, and at the segment's last slot its count
@@ -447,17 +551,26 @@ tail_warp(const int* __restrict__ keys, const V* __restrict__ vals,
     if (key[r] != kEmpty &&
         (seg_end || (r == 7 ? right_key : key[r + 1]) != key[r])) {
       const int o = (i & ~(kW2 - 1)) + rank - 1;
-      st.key[stage_pos<int>(o)] = key[r];
-      st.val[stage_pos<V>(o)] = v[r];
+      skey[stage_pos<int>(o)] = key[r];
+      sval[stage_pos<V>(o)] = v[r];
     }
     if (seg_end && i < n) out_count[(g0 + i) >> kLogW2] = rank;
   }
-  __syncwarp();
+}
+
+// Step 6, second half: a warp's 256 staged slots out to global memory (n
+// of them are slots), with 16-byte lane stores where `whole`.
+template <typename V>
+__device__ __forceinline__ void store_tile(const int* skey, const V* sval,
+                                           int* __restrict__ out_key,
+                                           V* __restrict__ out_val, int n,
+                                           bool whole, int lane) {
   if (whole) {
-    const int4* sk = reinterpret_cast<const int4*>(st.key);
-    const int4* sv = reinterpret_cast<const int4*>(st.val);
-    int4* ok = reinterpret_cast<int4*>(out_key + g0);
-    int4* ov = reinterpret_cast<int4*>(out_val + g0);
+    constexpr int kValChunks = kWarpSlots * sizeof(V) / 16;
+    const int4* sk = reinterpret_cast<const int4*>(skey);
+    const int4* sv = reinterpret_cast<const int4*>(sval);
+    int4* ok = reinterpret_cast<int4*>(out_key);
+    int4* ov = reinterpret_cast<int4*>(out_val);
 #pragma unroll
     for (int q = 0; q < kWarpSlots / 4 / 32; ++q) {
       const int c4 = q * 32 + lane;
@@ -470,33 +583,254 @@ tail_warp(const int* __restrict__ keys, const V* __restrict__ vals,
     }
   } else {
     for (int s = lane; s < n; s += 32) {
-      out_key[g0 + s] = st.key[stage_pos<int>(s)];
-      out_val[g0 + s] = st.val[stage_pos<V>(s)];
+      out_key[s] = skey[stage_pos<int>(s)];
+      out_val[s] = sval[stage_pos<V>(s)];
     }
   }
 }
+
+// w2 <= kWarpMaxW2: one tile of 256 slots per warp, in registers.  `vec`
+// says that all four planes are 16-byte aligned, so that a whole tile
+// moves with 16-byte lane loads and stores; the last, partial tile and
+// unaligned planes go slot by slot.
+template <typename V, int kLogW2>
+__global__ void __launch_bounds__(kWarpThreads)
+tail_warp(const int* __restrict__ keys, const V* __restrict__ vals,
+          const int* __restrict__ row_len, int* __restrict__ out_key,
+          V* __restrict__ out_val, int* __restrict__ out_count,
+          long long slots, bool vec) {
+  constexpr int kW2 = 1 << kLogW2;
+  __shared__ WarpStage<V> stages[kWarpThreads / 32];
+  WarpStage<V>& st = stages[threadIdx.x >> 5];
+  const int lane = threadIdx.x & 31;
+  const int pos0 = lane * 8;
+  const long long g0 =
+      (static_cast<long long>(blockIdx.x) * (kWarpThreads / 32) +
+       (threadIdx.x >> 5)) * kWarpSlots;
+  if (g0 >= slots) return;
+  const int n = slots - g0 < kWarpSlots ? static_cast<int>(slots - g0)
+                                        : kWarpSlots;
+  const bool whole = vec && n == kWarpSlots;
+
+  int key[8];
+  load_tile<V>(keys, vals, g0, n, whole, lane, key, st.val);
+  if (row_len != nullptr) mask_rows<kLogW2>(row_len, g0, n, lane, pos0, key);
+  int src[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) src[r] = pos0 + r;
+#pragma unroll
+  for (int lk = 1; lk <= kLogW2; ++lk) {
+    warp_merge<kW2>(key, src, lane, pos0, lk);
+  }
+  __syncwarp();
+  V v[8];
+  fetch_values<V>(key, src, st.val, v);
+  unsigned valid_starts;
+  int head[8], hx, cx;
+  warp_runs<kW2>(key, lane, pos0, kEmpty, valid_starts, head, hx, cx);
+  const int rank_in = run_carry<kW2>(head, hx, cx, valid_starts, lane, -1, 0);
+  scan_passes<V, kLogW2, 0>(v, head, lane, pos0, 0, nullptr, false);
+  __syncwarp();
+  clear_stage<V>(st.key, st.val, lane);
+  __syncwarp();
+  pack_runs<V, kLogW2>(key, v, valid_starts, rank_in, kEmpty, lane, pos0,
+                       st.key, st.val, out_count, g0, n);
+  __syncwarp();
+  store_tile<V>(st.key, st.val, out_key + g0, out_val + g0, n, whole, lane);
+}
+
+// The tile path's block: a tile of max(w2, kTileMinSlots) slots, 256 a
+// warp; whole segments, so only partners 256 or more apart in the
+// network and the scan lie in another warp.
+__host__ __device__ constexpr int tile_slots(int lw2) {
+  return (1 << lw2) > kTileMinSlots ? 1 << lw2 : kTileMinSlots;
+}
+
+// Dynamic shared memory of the tile path: the values' stage (later the
+// packed values), then two exchange buffers of 8 bytes a slot ((key,
+// slot index) pairs, then values; the packed keys in the first).
+template <typename V>
+size_t tile_smem_bytes(int lw2) {
+  return static_cast<size_t>(tile_slots(lw2)) * (sizeof(V) + 16);
+}
+
+// 512 <= w2 <= kSmemMaxW2: the warp path widened to a block.  Each warp
+// runs the warp path's steps on its 256 slots; the network's stages with
+// partners 256 or more apart, the heads' and counts' carries from the
+// earlier warps of a segment, the scan's cross-warp partners and the pack
+// go through shared memory, each with a __syncthreads.
+template <typename V, int kLogW2>
+__global__ void __launch_bounds__(tile_slots(kLogW2) / 8)
+tail_tile(const int* __restrict__ keys, const V* __restrict__ vals,
+          const int* __restrict__ row_len, int* __restrict__ out_key,
+          V* __restrict__ out_val, int* __restrict__ out_count,
+          long long slots, bool vec) {
+  constexpr int kW2 = 1 << kLogW2;
+  constexpr int kSlots = tile_slots(kLogW2);
+  constexpr int kWarps = kSlots / kWarpSlots;
+  constexpr int kSegWarps = kW2 / kWarpSlots;
+  // a block of 1024 threads (w2 = 8192) leaves a thread 64 registers
+  constexpr bool kTight = kSlots == 8192;
+  extern __shared__ __align__(16) unsigned char smem[];
+  V* sval = reinterpret_cast<V*>(smem);
+  unsigned char* xraw = smem + kSlots * sizeof(V);
+  __shared__ int warp_first[kWarps], warp_last[kWarps];
+  __shared__ int warp_head[kWarps], warp_count[kWarps];
+  __shared__ int wait_rank[kTight ? kSlots / 8 : 1];
+  __shared__ unsigned wait_starts[kTight ? kSlots / 8 : 1];
+  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int pos0 = w * kWarpSlots + lane * 8;
+  const long long g0 =
+      static_cast<long long>(blockIdx.x) * kSlots + w * kWarpSlots;
+  // slots and the tile are multiples of w2, so a warp's 256 positions
+  // are all slots or all padding, and so is a segment's every warp
+  const int n = g0 < slots ? kWarpSlots : 0;
+  const bool whole = vec && n == kWarpSlots;
+
+  int key[8];
+  load_tile<V>(keys, vals, g0, n, whole, lane, key, sval + w * kWarpSlots);
+  if (row_len != nullptr) mask_rows<kLogW2>(row_len, g0, n, lane, pos0, key);
+  int src[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) src[r] = pos0 + r;
+  int2* xkey = reinterpret_cast<int2*>(xraw);
+  int parity = 0;
+#pragma unroll
+  for (int lk = 1; lk <= kLogW2; ++lk) {
+    const int k = 1 << lk;
+    const bool asc = k == kW2 || (pos0 & k) == 0;
+#pragma unroll
+    for (int lj = lk - 1; lj >= 8; --lj) {   // partner in warp w ^ (j / 256)
+      const int m = 1 << (lj - 8);
+      int2* buf = xkey + parity * kSlots;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        buf[(w * 8 + r) * 32 + lane] = make_int2(key[r], src[r]);
+      }
+      __syncthreads();
+      const bool keep_min = ((w & m) == 0) == asc;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int2 p = buf[((w ^ m) * 8 + r) * 32 + lane];
+        const int nk = keep_min ? min(key[r], p.x) : max(key[r], p.x);
+        if (nk != key[r]) src[r] = p.y;
+        key[r] = nk;
+      }
+      parity ^= 1;
+    }
+    warp_merge<kW2>(key, src, lane, pos0, lk);
+  }
+  // (the network's first cross-warp stage has put every value in the
+  // stage before any warp fetches)
+  V v[8];
+  fetch_values<V>(key, src, sval, v);
+  if (lane == 0) warp_first[w] = key[0];
+  if (lane == 31) warp_last[w] = key[7];
+  __syncthreads();
+  const bool seg_first = w % kSegWarps == 0;
+  const bool seg_last = w % kSegWarps == kSegWarps - 1;
+  const int left0 = seg_first ? kEmpty : warp_last[w - 1];
+  unsigned valid_starts;
+  int head[8], hx, cx;
+  warp_runs<kW2>(key, lane, pos0, left0, valid_starts, head, hx, cx);
+  if (lane == 31) {
+    warp_head[w] = hx;
+    warp_count[w] = cx;
+  }
+  const bool cross = __syncthreads_or(lane == 0 && !seg_first &&
+                                      key[0] == left0 && left0 != kEmpty);
+  const int w0 = w - w % kSegWarps;     // the segment's first warp
+  const int head_in =
+      __reduce_max_sync(kFullMask, lane < w ? warp_head[lane] : -1);
+  const int count_in = __reduce_add_sync(
+      kFullMask, lane >= w0 && lane < w ? warp_count[lane] : 0);
+  const int rank_in =
+      run_carry<kW2>(head, hx, cx, valid_starts, lane, head_in, count_in);
+  // the keys wait in the values' stage (every warp has fetched) while the
+  // scan holds the values, and so, where a thread has 64 registers, do
+  // the run ranks' bits
+  int* kwait = reinterpret_cast<int*>(sval);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) kwait[(w * 8 + r) * 32 + lane] = key[r];
+  if constexpr (kTight) {
+    wait_rank[threadIdx.x] = rank_in;
+    wait_starts[threadIdx.x] = valid_starts;
+  }
+  scan_passes<V, kLogW2, kSlots>(v, head, lane, pos0, w,
+                                 reinterpret_cast<V*>(xraw), cross);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) key[r] = kwait[(w * 8 + r) * 32 + lane];
+  const int rank = kTight ? wait_rank[threadIdx.x] : rank_in;
+  const unsigned starts = kTight ? wait_starts[threadIdx.x] : valid_starts;
+  int* skey = reinterpret_cast<int*>(xraw);
+  __syncthreads();                      // the stage and buffers are free
+  clear_stage<V>(skey + w * kWarpSlots, sval + w * kWarpSlots, lane);
+  __syncthreads();
+  const int right7 = seg_last ? kEmpty : warp_first[w + 1];
+  pack_runs<V, kLogW2>(key, v, starts, rank, right7, lane, pos0,
+                       skey, sval, out_count, g0 - w * kWarpSlots,
+                       n == 0 ? 0 : kSlots);
+  __syncthreads();
+  store_tile<V>(skey + w * kWarpSlots, sval + w * kWarpSlots, out_key + g0,
+                out_val + g0, n, whole, lane);
+}
+
+// Whether all four planes are 16-byte aligned, so that whole tiles move
+// with 16-byte lane loads and stores.
+template <typename V>
+bool aligned16(const int* keys, const V* vals, const int* out_key,
+               const V* out_val) {
+  return ((reinterpret_cast<uintptr_t>(keys) |
+           reinterpret_cast<uintptr_t>(vals) |
+           reinterpret_cast<uintptr_t>(out_key) |
+           reinterpret_cast<uintptr_t>(out_val)) & 15) == 0;
+}
+
+template <typename V>
+using TailKernel = void (*)(const int*, const V*, const int*, int*, V*, int*,
+                            long long, bool);
 
 // The warp path for segments of 2^lw2 slots (1 <= lw2 <= 8).
 template <typename V>
 void launch_warp(int lw2, const int* keys, const V* vals,
                  const int* row_len, int* out_key, V* out_val,
                  int* out_count, long long slots, cudaStream_t stream) {
-  using Kernel = void (*)(const int*, const V*, const int*, int*, V*, int*,
-                          long long, bool);
-  const Kernel kernels[] = {tail_warp<V, 1>, tail_warp<V, 2>,
-                            tail_warp<V, 3>, tail_warp<V, 4>,
-                            tail_warp<V, 5>, tail_warp<V, 6>,
-                            tail_warp<V, 7>, tail_warp<V, 8>};
+  const TailKernel<V> kernels[] = {tail_warp<V, 1>, tail_warp<V, 2>,
+                                   tail_warp<V, 3>, tail_warp<V, 4>,
+                                   tail_warp<V, 5>, tail_warp<V, 6>,
+                                   tail_warp<V, 7>, tail_warp<V, 8>};
   const long long tiles = (slots + kWarpSlots - 1) / kWarpSlots;
   const long long blocks = (tiles + kWarpThreads / 32 - 1) /
                            (kWarpThreads / 32);
-  const bool vec = ((reinterpret_cast<uintptr_t>(keys) |
-                     reinterpret_cast<uintptr_t>(vals) |
-                     reinterpret_cast<uintptr_t>(out_key) |
-                     reinterpret_cast<uintptr_t>(out_val)) & 15) == 0;
   kernels[lw2 - 1]<<<static_cast<unsigned>(blocks), kWarpThreads, 0,
                      stream>>>(keys, vals, row_len, out_key, out_val,
-                               out_count, slots, vec);
+                               out_count, slots,
+                               aligned16(keys, vals, out_key, out_val));
+}
+
+// The tile path for segments of 2^lw2 slots (9 <= lw2 <= 13): one block
+// of tile_slots(lw2) / 8 threads a tile.
+template <typename V>
+cudaError_t launch_tile(int lw2, const int* keys, const V* vals,
+                        const int* row_len, int* out_key, V* out_val,
+                        int* out_count, long long slots,
+                        cudaStream_t stream) {
+  const TailKernel<V> kernels[] = {tail_tile<V, 9>, tail_tile<V, 10>,
+                                   tail_tile<V, 11>, tail_tile<V, 12>,
+                                   tail_tile<V, 13>};
+  const TailKernel<V> kernel = kernels[lw2 - 9];
+  const size_t smem = tile_smem_bytes<V>(lw2);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int tile = tile_slots(lw2);
+  const long long blocks = (slots + tile - 1) / tile;
+  kernel<<<static_cast<unsigned>(blocks), tile / 8, smem, stream>>>(
+      keys, vals, row_len, out_key, out_val, out_count, slots,
+      aligned16(keys, vals, out_key, out_val));
+  return cudaSuccess;
 }
 
 // The path that segments of w2 slots take; kPathNone for a width that
@@ -521,15 +855,10 @@ int launch(const int* keys, const V* vals, const int* row_len,
     launch_warp<V>(__builtin_ctz(w2), keys, vals, row_len, out_key, out_val,
                    out_count, slots, stream);
   } else if (path == kPathTile) {
-    const int tile = w2 < kMinTile ? kMinTile : w2;
-    const size_t smem = static_cast<size_t>(tile) * (2 * sizeof(V) + 12);
-    cudaError_t err = cudaFuncSetAttribute(
-        tail_smem<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    const cudaError_t err =
+        launch_tile<V>(__builtin_ctz(w2), keys, vals, row_len, out_key,
+                       out_val, out_count, slots, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const long long blocks = (slots + tile - 1) / tile;
-    tail_smem<V><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-        keys, vals, row_len, out_key, out_val, out_count, slots, w2, tile);
   } else {
     if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     tail_global<V><<<static_cast<unsigned>(slots / w2), kThreads, 0,

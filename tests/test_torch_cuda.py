@@ -60,8 +60,8 @@ def tail_inputs(w2: int, nseg: int, seed: int):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("w2", [2, 4, 8, 16, 32, 64, 128, 256, 512, 2048,
-                                8192, 32768, 65536])
+@pytest.mark.parametrize("w2", [2, 4, 8, 16, 32, 64, 128, 256, 512, 1024,
+                                2048, 4096, 8192, 32768, 65536])
 def test_kernel_matches_plain(cuda, w2, dtype):
     nseg = max(3, (1 << 17) // w2)
     k, v = tail_inputs(w2, nseg, seed=w2)
@@ -74,10 +74,8 @@ def test_kernel_matches_plain(cuda, w2, dtype):
     pK, pV, pc = et.esc_tail_flat_plain(keys, vals, w2=w2)
     assert torch.equal(oK, pK)
     assert torch.equal(cnt, pc)
-    tol = 1e-9 if dtype == torch.float64 else 1e-4
-    err = (oV - pV).abs()
-    assert bool((err <= tol * torch.clamp(pV.abs(), min=1.0)).all()), \
-        float(err.max())
+    # every path adds in the plain version's order: bit for bit
+    assert torch.equal(oV, pV), float((oV - pV).abs().max())
 
 
 @pytest.mark.cuda
@@ -253,8 +251,8 @@ def test_blockdense_on_card(cuda, value_dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("w2", [2, 4, 8, 16, 32, 64, 128, 256, 512, 2048,
-                                16384])
+@pytest.mark.parametrize("w2", [2, 4, 8, 16, 32, 64, 128, 256, 512, 1024,
+                                2048, 4096, 16384])
 def test_slab_tail_matches_plain(cuda, w2, dtype):
     """The slab form with row counts under w2 (NaN and random keys past
     them), empty and full rows: exact against the plain version, which
@@ -279,6 +277,7 @@ def test_slab_tail_matches_plain(cuda, w2, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("w2,path", [(2, "warp"), (64, "warp"),
                                      (256, "warp"), (512, "tile"),
+                                     (1024, "tile"), (4096, "tile"),
                                      (8192, "tile"), (16384, "global"),
                                      (65536, "global")])
 def test_tail_kernel_path_by_width(cuda, w2, path):
@@ -290,39 +289,49 @@ def test_tail_kernel_path_by_width(cuda, w2, path):
         et.kernel_path(w2 * 3)
 
 
-def check_both_tails(keys, vals, row_len, w2: int, dtype):
-    """Both tail forms on one input against their plain versions: keys,
-    counts and slab values exact, flat values within the flat test's
-    tolerances; each wrapper launches once."""
-    k, v, rl = (torch.from_numpy(x).to(torch.device("cuda"))
-                for x in (keys, vals, row_len))
-    v = v.to(dtype)
+def check_both_tails(keys, vals, row_len, w2: int, dtype, offset: int = 0):
+    """Both tail forms on one input against their plain versions, keys,
+    values and counts bit for bit; each wrapper launches once.  With
+    ``offset``, every plane is a view that starts ``offset`` elements into
+    its buffer (not on a 16-byte boundary for an odd offset)."""
+    dev = torch.device("cuda")
+
+    def view(x, dt):
+        buf = torch.zeros(offset + x.size, dtype=dt, device=dev)
+        buf[offset:] = torch.from_numpy(x.reshape(-1)).to(dev, dt)
+        return buf[offset:].view(x.shape)
+
+    k = view(keys, torch.int32)
+    v = view(vals, dtype)
+    rl = torch.from_numpy(row_len).to(dev)
     before = (et.esc_tail.launches, et.esc_tail_flat.launches)
     out = et.esc_tail(k, v, rl, w2=w2)
     torch.cuda.synchronize()
     for a, b in zip(out, et.esc_tail_plain(k, v, rl, w2=w2)):
         assert torch.equal(a, b)
     live = torch.arange(w2, device=k.device)[None, :] < rl.long()[:, None]
-    fk = torch.where(live, k, I32_MAX).reshape(-1)
-    fv = torch.where(live, v, 0.0).reshape(-1)
+    fk = view(torch.where(live, k, I32_MAX).cpu().numpy().reshape(-1),
+              torch.int32)
+    fv = view(torch.where(live, v, 0.0).cpu().numpy().reshape(-1), dtype)
     oK, oV, cnt = et.esc_tail_flat(fk, fv, w2=w2)
     torch.cuda.synchronize()
     assert (et.esc_tail.launches, et.esc_tail_flat.launches) == (
         before[0] + 1, before[1] + 1)
     pK, pV, pc = et.esc_tail_flat_plain(fk, fv, w2=w2)
     assert torch.equal(oK, pK) and torch.equal(cnt, pc)
-    tol = 1e-9 if dtype == torch.float64 else 1e-4
-    assert bool(((oV - pV).abs()
-                 <= tol * torch.clamp(pV.abs(), min=1.0)).all())
+    assert torch.equal(oV, pV)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("w2,rows", [(8, 5), (64, 3), (2, 3), (128, 7)])
+@pytest.mark.parametrize("w2,rows", [(8, 5), (64, 3), (2, 3), (128, 7),
+                                     (512, 3), (1024, 3), (8192, 3)])
 def test_tails_partial_tile(cuda, w2, rows, dtype):
-    """Slot counts that are not a multiple of the warp path's 256-slot
-    tile: the last tile is partial (NaN and random keys past each row's
-    count in the slab form)."""
+    """Slot counts that are not a multiple of the kernel's tile (256
+    slots a warp on the warp path, max(w2, 2048) a block on the tile
+    path; at w2 >= 2048 a tile is one row): the last tile is partial
+    (NaN and random keys past each row's count in the slab form; row 0
+    full)."""
     rng = np.random.default_rng(w2 * rows)
     keys = rng.integers(0, max(2, w2 // 4), (rows, w2)).astype(np.int32)
     row_len = rng.integers(0, w2 + 1, rows).astype(np.int32)
@@ -334,12 +343,13 @@ def test_tails_partial_tile(cuda, w2, rows, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("w2", [2, 32, 256])
+@pytest.mark.parametrize("w2", [2, 32, 256, 512, 1024, 8192])
 def test_tails_equal_keys_and_empty_tiles(cuda, w2, dtype):
-    """One whole 256-slot tile whose keys are all equal, then an all-empty
-    tile (every row count 0), then a tile of full rows of distinct keys
-    in descending order."""
-    per = 256 // w2
+    """One whole tile (256 slots on the warp path, max(w2, 2048) on the
+    tile path) whose keys are all equal, then an all-empty tile (every
+    row count 0), then a tile of full rows of distinct keys in
+    descending order."""
+    per = (256 if w2 <= 256 else max(w2, 2048)) // w2
     keys = np.empty((3 * per, w2), dtype=np.int32)
     keys[:per] = 12345
     keys[per:2 * per] = np.random.default_rng(w2).integers(0, 9, (per, w2))
@@ -352,10 +362,12 @@ def test_tails_equal_keys_and_empty_tiles(cuda, w2, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("w2", [16, 256])
+@pytest.mark.parametrize("w2", [16, 256, 512, 1024, 8192])
 def test_tails_unaligned_planes(cuda, w2, dtype):
     """Planes that do not start on a 16-byte boundary (contiguous views at
-    an odd offset) take the warp path's slot-by-slot loads and stores."""
+    an odd offset) take the slot-by-slot loads and stores of the warp
+    and tile paths; then both forms at an odd offset, with row counts
+    under w2, a full row and an empty one."""
     k, v = tail_inputs(w2, 40, seed=w2 + 5)
     keys = torch.from_numpy(np.concatenate([[0], k]).astype(np.int32))
     vals = torch.from_numpy(np.concatenate([[0.0], v])).to(dtype)
@@ -365,6 +377,13 @@ def test_tails_unaligned_planes(cuda, w2, dtype):
     pK, pV, pc = et.esc_tail_flat_plain(keys, vals, w2=w2)
     assert torch.equal(oK, pK) and torch.equal(cnt, pc)
     assert torch.equal(oV, pV)
+    rng = np.random.default_rng(w2 + 6)
+    rows = 5
+    skeys = rng.integers(0, max(2, w2 // 4), (rows, w2)).astype(np.int32)
+    row_len = rng.integers(0, w2 + 1, rows).astype(np.int32)
+    row_len[0], row_len[1] = w2, 0
+    svals = rng.standard_normal((rows, w2))
+    check_both_tails(skeys, svals, row_len, w2, dtype, offset=1)
 
 
 @pytest.mark.cuda

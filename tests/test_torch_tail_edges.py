@@ -1,9 +1,12 @@
 """Edge shapes of the ESC tail, both forms, the port's (plain version on
 the CPU) against the JAX package's ``esc_tail_flat`` and ``esc_tail`` in
 Pallas interpreter mode, on the same numpy inputs: slot counts that are
-not a multiple of 256 (the CUDA kernel's warp path works 256-slot tiles,
-so its last tile is partial), a whole 256-slot tile of one key, a tile
-of empty rows and a tile of full rows in descending key order.
+not a multiple of the CUDA kernel's tile (256 slots a warp on its warp
+path, w2 <= 256; max(w2, 2048) a block on its tile path, 512 <= w2 <=
+8192), so its last tile is partial; a whole tile of one key, a tile of
+empty rows and a tile of full rows in descending key order.  At the tile path's widths (512, 1024, 8192) the
+same shapes are held against a numpy reference instead (interpreter mode
+is slow at those widths).
 
 Tolerances as in tests/test_torch_esc_tail.py and
 tests/test_torch_ragged_fill.py: keys and counts exact; f64 values within
@@ -35,10 +38,11 @@ def partial_tile(w2: int, rows: int):
 
 
 def equal_and_empty_tiles(w2: int):
-    """One 256-slot tile of one key, one of empty rows (random keys and
-    values past their count 0), one of full rows of distinct keys in
-    descending order."""
-    per = 256 // w2
+    """One kernel tile (256 slots on the warp path, max(w2, 2048) on the
+    tile path) of one key, one of empty rows (random keys and values past
+    their count 0), one of full rows of distinct keys in descending
+    order."""
+    per = (256 if w2 <= 256 else max(w2, 2048)) // w2
     rng = np.random.default_rng(w2)
     keys = np.empty((3 * per, w2), dtype=np.int32)
     keys[:per] = 12345
@@ -125,3 +129,51 @@ def test_partial_tile_matches_jax(w2, rows, dtype):
 @pytest.mark.parametrize("w2", [2, 32, 256])
 def test_equal_keys_and_empty_tiles_match_jax(w2, dtype):
     check_both_forms(*equal_and_empty_tiles(w2), dtype)
+
+
+def numpy_rows(keys, vals, row_len):
+    """Per row: the distinct keys under the row's count ascending, their
+    summed values (f64) and the count, left-packed and padded with
+    2^31-1 and 0."""
+    rows, w2 = keys.shape
+    out_k = np.full((rows, w2), I32_MAX, dtype=np.int32)
+    out_v = np.zeros((rows, w2))
+    cnt = np.zeros(rows, dtype=np.int32)
+    for r in range(rows):
+        k, v = keys[r, :row_len[r]], vals[r, :row_len[r]]
+        uk, inv = np.unique(k, return_inverse=True)
+        out_k[r, :uk.size] = uk
+        out_v[r, :uk.size] = np.bincount(inv, weights=v, minlength=uk.size)
+        cnt[r] = uk.size
+    return out_k, out_v, cnt
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", ["partial", "equal_and_empty"])
+@pytest.mark.parametrize("w2", [512, 1024, 8192])
+def test_tile_width_edges_match_numpy(w2, shape, dtype):
+    """The tile path's widths: both forms of the port's tail on the edge
+    shapes against :func:`numpy_rows` (keys and counts exact; values
+    within 1e-9 (f64) or 1e-4 (f32) of the summed magnitudes).  Numpy is
+    the reference here: the JAX package's interpreter mode compiles
+    slowly at these widths."""
+    keys, vals, row_len = (partial_tile(w2, 3) if shape == "partial"
+                           else equal_and_empty_tiles(w2))
+    f64 = dtype == torch.float64
+    vals = vals if f64 else vals.astype(np.float32).astype(np.float64)
+    rK, rV, rc = numpy_rows(keys, vals, row_len)
+    _, mag, _ = numpy_rows(keys, np.abs(vals), row_len)
+    tol = 1e-9 if f64 else 1e-4
+    dead = np.arange(w2)[None, :] >= row_len[:, None]
+    fk = np.where(dead, I32_MAX, keys).astype(np.int32).reshape(-1)
+    fv = np.where(dead, 0.0, vals).reshape(-1)
+    for oK, oV, cnt in (
+            tet.esc_tail(torch.from_numpy(keys),
+                         torch.from_numpy(vals).to(dtype),
+                         torch.from_numpy(row_len), w2=w2),
+            tet.esc_tail_flat(torch.from_numpy(fk),
+                              torch.from_numpy(fv).to(dtype), w2=w2)):
+        assert np.array_equal(oK.numpy().reshape(rK.shape), rK)
+        assert np.array_equal(cnt.numpy(), rc)
+        err = np.abs(oV.double().numpy().reshape(rV.shape) - rV)
+        assert np.all(err <= tol * np.maximum(1.0, mag))
