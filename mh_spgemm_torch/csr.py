@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .errors import MatrixFormatError, ShapeMismatchError, require
+from .timing import span
 
 
 @dataclasses.dataclass
@@ -262,8 +263,10 @@ class DeviceCSR:
         return self.val.device
 
     def host(self) -> CSR:
-        nnz = self.nnz
-        return CSR(M=self.M, N=self.N,
-                   ptr=self.ptr[: self.M + 1].cpu().numpy(),
-                   col=self.col[:nnz].cpu().numpy(),
-                   val=self.val[:nnz].cpu().numpy())
+        """The trimmed CSR on the host (the ``readback`` span)."""
+        with span("readback"):
+            nnz = self.nnz
+            return CSR(M=self.M, N=self.N,
+                       ptr=self.ptr[: self.M + 1].cpu().numpy(),
+                       col=self.col[:nnz].cpu().numpy(),
+                       val=self.val[:nnz].cpu().numpy())

@@ -71,6 +71,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..timing import span
 from . import esc_tail as esc_tail_mod
 from . import planned as pn
 from . import ragged_fill as rf
@@ -209,10 +210,18 @@ class BucketPlan:
     # slots that went through each tail, summed over this plan's runs
     tail_slots: Dict[str, int] = dataclasses.field(
         default_factory=lambda: {"direct": 0, "kernel": 0, "sort": 0})
+    # the legacy-replan decision (pipeline.prepare_bucketed_state): this
+    # plan replaced a discarded planned plan; the demoted share of that
+    # judged plan (None where no plan was judged); its demoted classes
+    replanned: bool = False
+    replan_share: Optional[float] = None
+    demoted_classes: int = 0
 
     def stats(self) -> dict:
         """Occupancy and padding counters, with the JAX package's keys;
-        ``frontend`` names the frontend each class runs."""
+        ``frontend`` names the frontend each class runs.  The port adds
+        the replan decision: ``replanned``, ``replan_share`` (compared
+        with ``_REPLAN_SHARE``) and ``demoted_classes``."""
         area = sum(c.W * c.rb * c.nchunks for c in self.classes)
         return {
             "engine": "bucketed",
@@ -220,6 +229,10 @@ class BucketPlan:
             "area_slots": area,
             "padding_ratio": round(area / max(1, self.intprod), 3),
             "nnz_c": self.nnz_c,
+            "replanned": self.replanned,
+            "replan_share": (None if self.replan_share is None
+                             else round(self.replan_share, 3)),
+            "demoted_classes": self.demoted_classes,
             "classes": [
                 {"W": c.W, "chunks": c.nchunks, "rows_per_chunk": c.rb,
                  "rows": int((c.rows_g >= 0).sum()),
@@ -540,11 +553,13 @@ def _attach_schedules(c: ClassPlan, scheds: list, L: int) -> None:
     c.pf_spec = (m_b, nst_b, m_a, nst_a, a_route)
 
 
-def _demote_long_spans(classes: List[ClassPlan]) -> None:
+def _demote_long_spans(classes: List[ClassPlan]) -> int:
     """``pre`` classes with W > 1 that the planned frontend could not
     schedule and whose entries span at least ``_DEMOTE_SPAN`` slots on
     average fall back to the gather frontend (the JAX planner's rule:
-    there the hold-scan broadcasts the A value per entry, not per slot)."""
+    there the hold-scan broadcasts the A value per entry, not per slot).
+    Returns how many classes it demoted."""
+    demoted = 0
     for c in classes:
         live = c.ent_len[c.ent_len > 0]
         span = float(live.mean()) if live.size else 0.0
@@ -553,6 +568,17 @@ def _demote_long_spans(classes: List[ClassPlan]) -> None:
             c.pre = False
             c.slot_src = None
             c.slot_aidx = None
+            demoted += 1
+    return demoted
+
+
+def replan_share(plan: "BucketPlan") -> float:
+    """The share of the slots outside fill classes that the demoted
+    (gather-frontend) classes hold; 0 for a plan with no such slots."""
+    nf = [(c, c.W * c.rb * c.nchunks) for c in plan.classes if not c.fill]
+    tot = sum(s for _, s in nf)
+    esc = sum(s for c, s in nf if not c.pre and not c.pf)
+    return esc / tot if tot else 0.0
 
 
 def needs_replan(plan: "BucketPlan") -> bool:
@@ -560,10 +586,7 @@ def needs_replan(plan: "BucketPlan") -> bool:
     classes hold at least ``_REPLAN_SHARE`` of the slots outside fill
     classes, the ``precompute=False`` plan (1.5x width grid, its own
     chunking) serves the matrix better."""
-    nf = [(c, c.W * c.rb * c.nchunks) for c in plan.classes if not c.fill]
-    tot = sum(s for _, s in nf)
-    esc = sum(s for c, s in nf if not c.pre and not c.pf)
-    return bool(tot) and esc / tot >= _REPLAN_SHARE
+    return replan_share(plan) >= _REPLAN_SHARE
 
 
 def _entries_numpy(a_ptr, a_col, b_starts, p_ent, rows_c, rb, W, nchunks,
@@ -787,9 +810,10 @@ def plan_buckets(a_ptr: np.ndarray, a_col: np.ndarray,
         if precompute and not c.fill:
             _attach_slot_arrays(c)
         classes.append(c)
+    demoted = 0
     if pf_on and vwords in (1, 2):
         attach_planned(classes, int(b_ptr[-1]))
-        _demote_long_spans(classes)
+        demoted = _demote_long_spans(classes)
 
     # flat offset of each row's slab in the concatenated class slabs
     slab_row_start = np.zeros(m, dtype=np.int32)
@@ -806,7 +830,7 @@ def plan_buckets(a_ptr: np.ndarray, a_col: np.ndarray,
         [slab_row_start, np.zeros(m_cap - m, np.int32)])
     return BucketPlan(m=m, m_cap=m_cap, classes=classes, intprod=intprod,
                       slab_row_start=slab_row_start, dma_fill=dma_fill,
-                      vwords=vwords)
+                      vwords=vwords, demoted_classes=demoted)
 
 
 def class_spec(c: ClassPlan) -> tuple:
@@ -1187,24 +1211,25 @@ def warm_plan_from_crow(plan: BucketPlan, crow: np.ndarray) -> None:
     the windowed extraction plan.  ``finish_bucketed`` calls it with the
     counts it reads back; given counts learned before (from the same
     matrices and config), a fresh plan's first call takes the warm
-    path."""
-    crow = np.asarray(crow).astype(np.int64)[: plan.m]
-    caps = []
-    for c in plan.classes:
-        rows = c.rows_g[c.rows_g >= 0]
-        total = int(crow[rows].sum()) if rows.size else 0
-        caps.append(quantize(total) if total else 1)
-    plan.class_caps = tuple(caps)
-    plan.nnz_c = int(crow.sum())
-    plan.nnz_cap = quantize(max(1, plan.nnz_c))
-    plan.crow_h = crow.astype(np.int32)
-    attach_static_extract(plan)
-    plan.ext = None
-    if plan.dma_fill != "off" and plan.nnz_c:
-        plan.ext = build_extract_plan(
-            plan.crow_h, plan.slab_row_start,
-            area=sum(c.W * c.rb * c.nchunks for c in plan.classes),
-            nplanes=1 + plan.vwords, force=plan.dma_fill == "on")
+    path.  Host work only: the ``learn`` span."""
+    with span("learn"):
+        crow = np.asarray(crow).astype(np.int64)[: plan.m]
+        caps = []
+        for c in plan.classes:
+            rows = c.rows_g[c.rows_g >= 0]
+            total = int(crow[rows].sum()) if rows.size else 0
+            caps.append(quantize(total) if total else 1)
+        plan.class_caps = tuple(caps)
+        plan.nnz_c = int(crow.sum())
+        plan.nnz_cap = quantize(max(1, plan.nnz_c))
+        plan.crow_h = crow.astype(np.int32)
+        attach_static_extract(plan)
+        plan.ext = None
+        if plan.dma_fill != "off" and plan.nnz_c:
+            plan.ext = build_extract_plan(
+                plan.crow_h, plan.slab_row_start,
+                area=sum(c.W * c.rb * c.nchunks for c in plan.classes),
+                nplanes=1 + plan.vwords, force=plan.dma_fill == "on")
 
 
 # ---------------------------------------------------------------------------
@@ -1230,12 +1255,15 @@ def upload_plan(plan: BucketPlan, device) -> None:
     device = torch.device(device)
     if plan.dev is not None and plan.device == device:
         return
-    plan.device = device
-    plan.dev = [{k: torch.as_tensor(_host_field(c, k)).to(device)
-                 for k in _DEV_FIELDS[c.frontend]} for c in plan.classes]
-    plan.dev_slab_start = torch.as_tensor(plan.slab_row_start).to(device)
-    plan.ext_static_dev = None
-    plan.ext_pf_dev = None
+    with span("upload"):
+        plan.device = device
+        plan.dev = [{k: torch.as_tensor(_host_field(c, k)).to(device)
+                     for k in _DEV_FIELDS[c.frontend]}
+                    for c in plan.classes]
+        plan.dev_slab_start = torch.as_tensor(plan.slab_row_start).to(
+            device)
+        plan.ext_static_dev = None
+        plan.ext_pf_dev = None
 
 
 def _product(AV, bv, valid):
@@ -1441,6 +1469,11 @@ def _chunk_tail(K, prod, *, seg_passes: int):
     return oC, oV, nnz_row
 
 
+_TAIL_SPANS = {t: "tail." + t for t in ("direct", "kernel", "sort")}
+_FRONT_SPANS = {f: "front." + f for f in ("fill", "planned", "pre",
+                                           "gather")}
+
+
 def _flat_tail(K, prod, valid, *, W: int, rows: int, seg_passes: int,
                route: str, counts: Dict[str, int]):
     """Tail of a precomputed class over flat ``[rows * W]`` planes, routed
@@ -1450,16 +1483,18 @@ def _flat_tail(K, prod, valid, *, W: int, rows: int, seg_passes: int,
     ``counts`` under the route taken.  Returns (oC [L], oV [L],
     nnz_row [rows])."""
     L = rows * W
-    if W == 1:
-        counts["direct"] += L
-        return K, prod, valid.to(torch.int32)
-    if route == "kernel" and esc_tail_mod.supported_w2(W):
-        counts["kernel"] += L
-        return esc_tail_mod.esc_tail_flat(K, prod, w2=W)
-    counts["sort"] += L
-    oC, oV, nnz_row = _chunk_tail(K.view(rows, W), prod.view(rows, W),
-                                  seg_passes=seg_passes)
-    return oC.reshape(L), oV.reshape(L), nnz_row
+    tail = ("direct" if W == 1
+            else "kernel" if route == "kernel"
+            and esc_tail_mod.supported_w2(W) else "sort")
+    counts[tail] += L
+    with span(_TAIL_SPANS[tail], W=W):
+        if tail == "direct":
+            return K, prod, valid.to(torch.int32)
+        if tail == "kernel":
+            return esc_tail_mod.esc_tail_flat(K, prod, w2=W)
+        oC, oV, nnz_row = _chunk_tail(K.view(rows, W), prod.view(rows, W),
+                                      seg_passes=seg_passes)
+        return oC.reshape(L), oV.reshape(L), nnz_row
 
 
 def slab_tail(K, prod, row_len, *, W: int, seg_passes: int, route: str,
@@ -1472,37 +1507,41 @@ def slab_tail(K, prod, row_len, *, W: int, seg_passes: int, route: str,
     oV [L], nnz_row [rows])."""
     rows = K.shape[0]
     L = rows * W
-    if W > 1 and route == "kernel" and esc_tail_mod.supported_w2(W):
-        counts["kernel"] += L
-        oC, oV, nnz_row = esc_tail_mod.esc_tail(K, prod, row_len, w2=W)
+    tail = ("kernel" if W > 1 and route == "kernel"
+            and esc_tail_mod.supported_w2(W)
+            else "direct" if W == 1 else "sort")
+    counts[tail] += L
+    with span(_TAIL_SPANS[tail], W=W):
+        if tail == "kernel":
+            oC, oV, nnz_row = esc_tail_mod.esc_tail(K, prod, row_len, w2=W)
+            return oC.reshape(L), oV.reshape(L), nnz_row
+        valid = (torch.arange(W, device=K.device)[None, :]
+                 < row_len.to(torch.int64)[:, None])
+        K = torch.where(valid, K, I32_MAX)
+        prod = torch.where(valid, prod, torch.zeros((), dtype=prod.dtype,
+                                                    device=prod.device))
+        if tail == "direct":
+            return K.reshape(L), prod.reshape(L), valid.sum(
+                dim=1, dtype=torch.int32)
+        oC, oV, nnz_row = _chunk_tail(K, prod, seg_passes=seg_passes)
         return oC.reshape(L), oV.reshape(L), nnz_row
-    valid = (torch.arange(W, device=K.device)[None, :]
-             < row_len.to(torch.int64)[:, None])
-    K = torch.where(valid, K, I32_MAX)
-    prod = torch.where(valid, prod, torch.zeros((), dtype=prod.dtype,
-                                                device=prod.device))
-    if W == 1:
-        counts["direct"] += L
-        return K.reshape(L), prod.reshape(L), valid.sum(
-            dim=1, dtype=torch.int32)
-    counts["sort"] += L
-    oC, oV, nnz_row = _chunk_tail(K, prod, seg_passes=seg_passes)
-    return oC.reshape(L), oV.reshape(L), nnz_row
 
 
 def class_front(c: ClassPlan, d: dict, a_val, b_col, b_val, pairs2d):
-    """The frontend of class ``c`` over all its chunks; its output feeds
-    :func:`class_tail`."""
-    if c.fill:
-        return front_fill(d, a_val, pairs2d, W=c.W, rb=c.rb,
-                          stride=c.stride, out_rows=c.out_rows)
-    if c.pf:
-        return front_planned(c, d, a_val, b_col, b_val)
-    if c.pre:
-        return expand_pre(d["slot_src"], d["slot_aidx"], a_val, b_col,
-                          b_val)
-    K, prod, valid = front_gather(d, a_val, b_col, b_val, W=c.W, rb=c.rb)
-    return K, prod, valid.sum(dim=1, dtype=torch.int32)
+    """The frontend of class ``c`` over all its chunks, in its
+    ``front.<frontend>`` span; its output feeds :func:`class_tail`."""
+    with span(_FRONT_SPANS[c.frontend], W=c.W):
+        if c.fill:
+            return front_fill(d, a_val, pairs2d, W=c.W, rb=c.rb,
+                              stride=c.stride, out_rows=c.out_rows)
+        if c.pf:
+            return front_planned(c, d, a_val, b_col, b_val)
+        if c.pre:
+            return expand_pre(d["slot_src"], d["slot_aidx"], a_val, b_col,
+                              b_val)
+        K, prod, valid = front_gather(d, a_val, b_col, b_val, W=c.W,
+                                      rb=c.rb)
+        return K, prod, valid.sum(dim=1, dtype=torch.int32)
 
 
 def class_tail(c: ClassPlan, front, *, route: str,
@@ -1693,8 +1732,10 @@ def run_bucketed(plan: BucketPlan, a_val, b_col, b_val, pairs2d=None, *,
     """Cold main stage: slabs plus their row counts.  Returns (crow,
     cptr, totals, slabs)."""
     upload_plan(plan, a_val.device)
-    slabs = bucketed_main(plan, a_val, b_col, b_val, pairs2d, route=route)
-    crow, cptr, totals = bucketed_counts(plan, slabs)
+    with span("main"):
+        slabs = bucketed_main(plan, a_val, b_col, b_val, pairs2d,
+                              route=route)
+        crow, cptr, totals = bucketed_counts(plan, slabs)
     return crow, cptr, totals, slabs
 
 
@@ -1704,16 +1745,18 @@ def extract_warm(plan: BucketPlan, slabs):
     one, else the planned extraction when it has that, else the static
     gather.  Returns (ccol, cval)."""
     if plan.ext is not None:
-        return bucketed_extract_windowed(slabs, plan.ext,
-                                         nnz_cap=plan.nnz_cap,
-                                         nnz_c=plan.nnz_c)
+        with span("extract.windowed"):
+            return bucketed_extract_windowed(slabs, plan.ext,
+                                             nnz_cap=plan.nnz_cap,
+                                             nnz_c=plan.nnz_c)
     if plan.ext_pf is not None:
-        return bucketed_extract_planned(slabs, planned_extract_dev(plan),
-                                        plan.ext_pf_spec,
-                                        nnz_cap=plan.nnz_cap,
-                                        nnz_c=plan.nnz_c)
-    return bucketed_extract_static(slabs, static_dev(plan)[0],
-                                   nnz_c=plan.nnz_c)
+        with span("extract.planned"):
+            return bucketed_extract_planned(
+                slabs, planned_extract_dev(plan), plan.ext_pf_spec,
+                nnz_cap=plan.nnz_cap, nnz_c=plan.nnz_c)
+    with span("extract.static"):
+        return bucketed_extract_static(slabs, static_dev(plan)[0],
+                                       nnz_c=plan.nnz_c)
 
 
 def planned_extract_dev(plan: BucketPlan) -> tuple:
@@ -1756,10 +1799,13 @@ def finish_bucketed(plan: BucketPlan, main_out):
     crow, cptr, _, slabs = main_out
     if plan.class_caps is None:
         warm_plan_from_crow(plan, crow[: plan.m].cpu().numpy())
-    if plan.ext is not None:
-        ccol, cval = bucketed_extract_windowed(
-            slabs, plan.ext, nnz_cap=plan.nnz_cap, nnz_c=cptr[plan.m_cap])
-    else:
-        ccol, cval = bucketed_extract(slabs, plan.dev_slab_start, cptr,
-                                      m=plan.m_cap, nnz_cap=plan.nnz_cap)
+    with span("extract.cold"):
+        if plan.ext is not None:
+            ccol, cval = bucketed_extract_windowed(
+                slabs, plan.ext, nnz_cap=plan.nnz_cap,
+                nnz_c=cptr[plan.m_cap])
+        else:
+            ccol, cval = bucketed_extract(slabs, plan.dev_slab_start, cptr,
+                                          m=plan.m_cap,
+                                          nnz_cap=plan.nnz_cap)
     return cptr, ccol, cval

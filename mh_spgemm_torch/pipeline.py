@@ -33,7 +33,7 @@ from .ops import masked_classes as masked_ops
 from .ops import numeric as numeric_ops
 from .ops import symbolic as symbolic_ops
 from .ops.shapes import quantize, quantize_pow2
-from .timing import PhaseTimer, Timing, device_fence
+from .timing import PhaseTimer, Timing, device_fence, span
 
 _NP_DTYPES = {torch.float64: np.float64, torch.float32: np.float32}
 _INT32_MAX = 2**31 - 1
@@ -138,13 +138,23 @@ def prepare_bucketed_state(A: CSR, B: CSR,
               area_cap=config.bucket_area_cap, vwords=vwords,
               dma_fill=fill_mode(config, dev),
               pow2_fill_widths=config.esc_tail == "pow2" and vwords == 1)
-    plan = bucketed_ops.plan_buckets(A.ptr, A.col, B.ptr, precompute=True,
-                                     planned=planned, **kw)
-    replanned = planned != "off" and bucketed_ops.needs_replan(plan)
-    if replanned:
-        plan = bucketed_ops.plan_buckets(A.ptr, A.col, B.ptr,
-                                         precompute=False, planned="off",
-                                         **kw)
+    with span("plan"):
+        with span("plan.first"):
+            plan = bucketed_ops.plan_buckets(A.ptr, A.col, B.ptr,
+                                             precompute=True,
+                                             planned=planned, **kw)
+        replanned = planned != "off" and bucketed_ops.needs_replan(plan)
+        if planned != "off":
+            plan.replan_share = bucketed_ops.replan_share(plan)
+        if replanned:
+            judged = plan
+            with span("plan.replan"):
+                plan = bucketed_ops.plan_buckets(A.ptr, A.col, B.ptr,
+                                                 precompute=False,
+                                                 planned="off", **kw)
+            plan.replanned = True
+            plan.replan_share = judged.replan_share
+            plan.demoted_classes = judged.demoted_classes
     return BucketedState(plan=plan, device=dev, route=route,
                          planned=planned, replanned=replanned)
 
@@ -154,16 +164,17 @@ def _upload_operands(state, A: CSR, B: CSR, vdtype: torch.dtype) -> None:
     fill stream on the state's device, once."""
     np_dt = _NP_DTYPES[vdtype]
     dev = state.device
-    state.a_val = torch.from_numpy(A.val.astype(np_dt)).to(dev)
-    state.b_val = torch.from_numpy(B.val.astype(np_dt)).to(dev)
-    state.b_col = torch.from_numpy(
-        np.ascontiguousarray(B.col, dtype=np.int32)).to(dev)
     plan = state.plan
-    if bucketed_ops.needs_pairs(plan):
-        state.pairs = torch.from_numpy(bucketed_ops.build_pairs_planar(
-            B.col, B.val.astype(np_dt), plan.vwords,
-            bucketed_ops.pairs_wrows_max(plan))).to(dev)
-    bucketed_ops.upload_plan(plan, dev)
+    with span("upload"):
+        state.a_val = torch.from_numpy(A.val.astype(np_dt)).to(dev)
+        state.b_val = torch.from_numpy(B.val.astype(np_dt)).to(dev)
+        state.b_col = torch.from_numpy(
+            np.ascontiguousarray(B.col, dtype=np.int32)).to(dev)
+        if bucketed_ops.needs_pairs(plan):
+            state.pairs = torch.from_numpy(bucketed_ops.build_pairs_planar(
+                B.col, B.val.astype(np_dt), plan.vwords,
+                bucketed_ops.pairs_wrows_max(plan))).to(dev)
+    bucketed_ops.upload_plan(plan, dev)      # its own span when it copies
 
 
 def spgemm_bucketed(A: CSR, B: CSR,
@@ -176,58 +187,58 @@ def spgemm_bucketed(A: CSR, B: CSR,
     fetches nnz(C) per row once; a call with the returned ``state`` takes
     the warm path (main stage and extraction with no sync between)."""
     require(A.N == B.M, ShapeMismatchError, "A.N must equal B.M")
-    timing = timing if timing is not None else Timing()
     route = check_supported(config)
-    with PhaseTimer.phase(timing, "symbolic_binning"):
-        if state is None:
-            state = prepare_bucketed_state(A, B, config, device)
-        elif device is not None:
-            require(resolve_device(device) == state.device, SpGEMMError,
-                    "state was prepared for another device")
-        require(state.route == route, SpGEMMError,
-                "state was prepared under another esc_tail setting")
-        _require_fill(state.plan.dma_fill, config, state.device)
-        _require_planned(state, config)
-        plan = state.plan
-    dev = state.device
+    with span("bucketed"):
+        with PhaseTimer.phase(timing, "symbolic_binning"):
+            if state is None:
+                state = prepare_bucketed_state(A, B, config, device)
+            elif device is not None:
+                require(resolve_device(device) == state.device, SpGEMMError,
+                        "state was prepared for another device")
+            require(state.route == route, SpGEMMError,
+                    "state was prepared under another esc_tail setting")
+            _require_fill(state.plan.dma_fill, config, state.device)
+            _require_planned(state, config)
+            plan = state.plan
+        dev = state.device
 
-    with PhaseTimer.phase(timing, "mem_alloc"):
-        if state.a_val is None:
-            _upload_operands(state, A, B, config.vdtype)
+        with PhaseTimer.phase(timing, "mem_alloc"):
+            if state.a_val is None:
+                _upload_operands(state, A, B, config.vdtype)
 
-    if A.nnz == 0 or B.nnz == 0 or not plan.classes:
-        C = DeviceCSR(M=A.M, N=B.N,
-                      ptr=torch.zeros(A.M + 1, dtype=torch.int32,
-                                      device=dev),
-                      col=torch.zeros(0, dtype=torch.int32, device=dev),
-                      val=torch.zeros(0, dtype=config.vdtype, device=dev),
-                      nnz_true=0)
-        return C, state
+        if A.nnz == 0 or B.nnz == 0 or not plan.classes:
+            C = DeviceCSR(M=A.M, N=B.N,
+                          ptr=torch.zeros(A.M + 1, dtype=torch.int32,
+                                          device=dev),
+                          col=torch.zeros(0, dtype=torch.int32, device=dev),
+                          val=torch.zeros(0, dtype=config.vdtype, device=dev),
+                          nnz_true=0)
+            return C, state
 
-    if plan.class_caps is not None and not config.profile:
+        if plan.class_caps is not None and not config.profile:
+            with PhaseTimer.phase(timing, "calculate_c_nnz"):
+                cptr, ccol, cval = bucketed_ops.run_bucketed_fused(
+                    plan, state.a_val, state.b_col, state.b_val, state.pairs,
+                    route=state.route)
+            with PhaseTimer.phase(timing, "numeric"):
+                _fence(dev)
+            return DeviceCSR(M=A.M, N=B.N, ptr=cptr, col=ccol, val=cval,
+                             nnz_true=plan.nnz_c), state
+
         with PhaseTimer.phase(timing, "calculate_c_nnz"):
-            cptr, ccol, cval = bucketed_ops.run_bucketed_fused(
+            main_out = bucketed_ops.run_bucketed(
                 plan, state.a_val, state.b_col, state.b_val, state.pairs,
                 route=state.route)
+            if config.profile:
+                _fence(dev)                # split main vs extraction exactly
+
+        with PhaseTimer.phase(timing, "malloc_c_col_val"):
+            cptr, ccol, cval = bucketed_ops.finish_bucketed(plan, main_out)
+
         with PhaseTimer.phase(timing, "numeric"):
             _fence(dev)
         return DeviceCSR(M=A.M, N=B.N, ptr=cptr, col=ccol, val=cval,
                          nnz_true=plan.nnz_c), state
-
-    with PhaseTimer.phase(timing, "calculate_c_nnz"):
-        main_out = bucketed_ops.run_bucketed(
-            plan, state.a_val, state.b_col, state.b_val, state.pairs,
-            route=state.route)
-        if config.profile:
-            _fence(dev)                # split main vs extraction exactly
-
-    with PhaseTimer.phase(timing, "malloc_c_col_val"):
-        cptr, ccol, cval = bucketed_ops.finish_bucketed(plan, main_out)
-
-    with PhaseTimer.phase(timing, "numeric"):
-        _fence(dev)
-    return DeviceCSR(M=A.M, N=B.N, ptr=cptr, col=ccol, val=cval,
-                     nnz_true=plan.nnz_c), state
 
 
 def spgemm_chunked(A: CSR, B: CSR,
@@ -242,7 +253,6 @@ def spgemm_chunked(A: CSR, B: CSR,
     require(A.N == B.M, ShapeMismatchError, "A.N must equal B.M")
     check_supported(config)
     dev = resolve_device(device)
-    timing = timing if timing is not None else Timing()
     blens = np.diff(B.ptr).astype(np.int64)
     cs = np.concatenate([[0], np.cumsum(blens[A.col])])
     p_cum = cs[A.ptr]                      # products before each row
@@ -354,7 +364,6 @@ def spgemm_blockdense(A: CSR, B: CSR,
     densifies and fetches nnz(C) per row once; a call with the returned
     ``state`` runs with no host sync."""
     require(A.N == B.M, ShapeMismatchError, "A.N must equal B.M")
-    timing = timing if timing is not None else Timing()
     check_supported(config)
 
     if A.nnz == 0 or B.nnz == 0:
@@ -453,7 +462,6 @@ def spgemm_masked(A: CSR, B: CSR,
     uploads and fetches nnz(C) per row once; a call with the returned
     ``state`` runs main stage and extraction with no sync between."""
     require(A.N == B.M, ShapeMismatchError, "A.N must equal B.M")
-    timing = timing if timing is not None else Timing()
     check_supported(config)
     with PhaseTimer.phase(timing, "symbolic_binning"):
         if state is None:
@@ -541,7 +549,6 @@ def spgemm(A: DeviceCSR, B: DeviceCSR,
     and block-dense engines plan from host CSR data
     (:func:`spgemm_host` routes them)."""
     require(A.N == B.M, ShapeMismatchError, "A.N must equal B.M")
-    timing = timing if timing is not None else Timing()
     if config.mode == "masked":
         return _spgemm_masked(A, B, config, timing, plan)
     if config.mode in ("esc", "bucketed", "blockdense", "auto"):
@@ -568,7 +575,8 @@ def _empty_c(A: DeviceCSR, B: DeviceCSR, config: SpGEMMConfig) -> DeviceCSR:
 
 
 def _spgemm_masked(A: DeviceCSR, B: DeviceCSR, config: SpGEMMConfig,
-                   timing: Timing, plan: Optional[SpGEMMPlan]) -> DeviceCSR:
+                   timing: Optional[Timing],
+                   plan: Optional[SpGEMMPlan]) -> DeviceCSR:
     """The paper's two-stage pipeline at product granularity: B's mask
     matrix, the exact symbolic stage (tile OR and popcount), then
     mask-guided accumulation.  A cold call reads the mask stage's and the
@@ -643,7 +651,8 @@ def _spgemm_masked(A: DeviceCSR, B: DeviceCSR, config: SpGEMMConfig,
 
 
 def _spgemm_esc(A: DeviceCSR, B: DeviceCSR, config: SpGEMMConfig,
-                timing: Timing, plan: Optional[SpGEMMPlan]) -> DeviceCSR:
+                timing: Optional[Timing],
+                plan: Optional[SpGEMMPlan]) -> DeviceCSR:
     """Fused expand-sort-compress: no mask matrix, one sort at column
     granularity.  A cold call reads ``A.ptr``, B's row lengths and
     nnz(C) back; a plan that knows ``intprod`` and ``nnz_c`` reads
@@ -696,21 +705,22 @@ def choose_engine(A: CSR, B: CSR, config: SpGEMMConfig,
     so on the TPU) against a sampled block-dense estimate, and, only when
     that is within 3x, against the exact block-dense plan's cost."""
     check_supported(config)
-    on_cuda = torch.device("cuda" if device is None else device).type \
-        == "cuda"
-    bkt_s = bucketed_ops.estimate_cost_s(
-        A.ptr, A.col, B.ptr, min_width=config.min_bucket_width,
-        vwords=_vwords(config), fill=on_cuda)
-    oz = _blockdense_route(config) == "kernel"
-    est = blockdense_ops.estimate_blockdense_cost(
-        A.ptr, A.col, B.ptr, B.col, A.M, A.N, config.vdtype, ozaki=oz)
-    if est > 3.0 * bkt_s:
-        return "bucketed"
-    plan = blockdense_ops.plan_blockdense(
-        A.ptr, A.col, B.ptr, B.col, A.M, A.N, B.N,
-        max_pairs=_pair_budget(config))
-    cost = blockdense_ops.blockdense_cost(plan, config.vdtype, ozaki=oz)
-    return "blockdense" if cost < bkt_s else "bucketed"
+    with span("route"):
+        on_cuda = torch.device("cuda" if device is None else device).type \
+            == "cuda"
+        bkt_s = bucketed_ops.estimate_cost_s(
+            A.ptr, A.col, B.ptr, min_width=config.min_bucket_width,
+            vwords=_vwords(config), fill=on_cuda)
+        oz = _blockdense_route(config) == "kernel"
+        est = blockdense_ops.estimate_blockdense_cost(
+            A.ptr, A.col, B.ptr, B.col, A.M, A.N, config.vdtype, ozaki=oz)
+        if est > 3.0 * bkt_s:
+            return "bucketed"
+        plan = blockdense_ops.plan_blockdense(
+            A.ptr, A.col, B.ptr, B.col, A.M, A.N, B.N,
+            max_pairs=_pair_budget(config))
+        cost = blockdense_ops.blockdense_cost(plan, config.vdtype, ozaki=oz)
+        return "blockdense" if cost < bkt_s else "bucketed"
 
 
 def spgemm_host(A: CSR, B: Optional[CSR] = None,
@@ -724,24 +734,25 @@ def spgemm_host(A: CSR, B: Optional[CSR] = None,
     indexing."""
     check_supported(config)
     dev = resolve_device(device)
-    if B is None:
-        B = A.transpose() if (config.aat and not A.is_symmetric) else A
-    mode = config.mode
-    if mode == "auto":
-        mode = choose_engine(A, B, config, device=dev)
-    if mode in ("blockdense", "masked"):
-        run = spgemm_blockdense if mode == "blockdense" else spgemm_masked
-        C, _ = run(A, B, config=config, timing=timing, device=dev)
+    with span("spgemm_host"):
+        if B is None:
+            B = A.transpose() if (config.aat and not A.is_symmetric) else A
+        mode = config.mode
+        if mode == "auto":
+            mode = choose_engine(A, B, config, device=dev)
+        if mode in ("blockdense", "masked"):
+            run = spgemm_blockdense if mode == "blockdense" else spgemm_masked
+            C, _ = run(A, B, config=config, timing=timing, device=dev)
+            return C.host()
+        if mode == "esc":
+            dA = A.device(config.vdtype, pad=True, device=dev)
+            dB = B.device(config.vdtype, pad=True, device=dev) \
+                if B is not A else dA
+            return spgemm(dA, dB, config=config, timing=timing).host()
+        try:
+            C, _ = spgemm_bucketed(A, B, config=config, timing=timing,
+                                   device=dev)
+        except bucketed_ops.SlabOverflowError:
+            return spgemm_chunked(A, B, config=config, timing=timing,
+                                  device=dev)
         return C.host()
-    if mode == "esc":
-        dA = A.device(config.vdtype, pad=True, device=dev)
-        dB = B.device(config.vdtype, pad=True, device=dev) \
-            if B is not A else dA
-        return spgemm(dA, dB, config=config, timing=timing).host()
-    try:
-        C, _ = spgemm_bucketed(A, B, config=config, timing=timing,
-                               device=dev)
-    except bucketed_ops.SlabOverflowError:
-        return spgemm_chunked(A, B, config=config, timing=timing,
-                              device=dev)
-    return C.host()

@@ -1,7 +1,14 @@
-"""Per-phase timing: the seven phase fields of the reference's ``Timing``
+"""The port's tracing: program spans on the profiler's clock
+(:func:`span`), the seven phase fields of the reference's ``Timing``
 (``total`` excludes ``form_mask_matrix_b``; sums and averages over
-iterations, ``print_step_time``), a context helper that adds a block's
-wall time to one field, and ``gflops``.
+iterations, ``print_step_time``), a context helper that opens a phase's
+span and adds the block's wall time to one field, and ``gflops``.
+
+A span is a ``torch.profiler.record_function`` range named
+``mh::<name>``, opened only while a profiler records: any
+``torch.profiler.profile`` around a call shows the program's stages on
+the same clock as the kernels they launch.  With no profiler recording
+a span is one shared no-op context: no clock read, no device sync.
 
 A phase's wall time means the device's time only when the block ends
 in a device fence (:func:`device_fence`, ``torch.cuda.synchronize``):
@@ -12,8 +19,12 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Optional
 
 import torch
+from torch.autograd import profiler as _profiler
+
+SPAN_PREFIX = "mh::"
 
 _PHASES = ("mem_alloc", "form_mask_matrix_b", "symbolic_binning",
            "calculate_c_nnz", "malloc_c_col_val", "numeric_binning",
@@ -63,15 +74,47 @@ class Timing:
         return d
 
 
+class _NoSpan:
+    """The span while no profiler records: does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str, **args):
+    """A ``mh::<name>`` range while a ``torch.profiler`` records, with
+    ``args`` (such as ``W=384``) as its argument string; otherwise the
+    shared no-op context.  Never synchronizes the device or reads a
+    tensor."""
+    if not _profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(
+        SPAN_PREFIX + name,
+        ",".join(f"{k}={v}" for k, v in args.items()) if args else None)
+
+
 class PhaseTimer:
-    """``with PhaseTimer.phase(t, "numeric"): ...`` adds the block's
-    wall time to ``t.numeric`` (the caller fences the device inside)."""
+    """``with PhaseTimer.phase(t, "numeric"): ...`` opens the phase's
+    span and, where a :class:`Timing` is given, adds the block's wall
+    time to ``t.numeric`` (the caller fences the device inside)."""
 
     class _Ctx:
+        __slots__ = ("timing", "field", "rf", "t0")
+
         def __init__(self, timing: Timing, field: str):
             self.timing, self.field = timing, field
 
         def __enter__(self):
+            self.rf = span(self.field)
+            self.rf.__enter__()
             self.t0 = time.perf_counter()
             return self
 
@@ -79,11 +122,13 @@ class PhaseTimer:
             dt = (time.perf_counter() - self.t0) * 1e3
             setattr(self.timing, self.field,
                     getattr(self.timing, self.field) + dt)
-            return False
+            return self.rf.__exit__(*exc)
 
     @staticmethod
-    def phase(timing: Timing, field: str) -> "PhaseTimer._Ctx":
+    def phase(timing: Optional[Timing], field: str):
         assert field in _PHASES, field
+        if timing is None:
+            return span(field)
         return PhaseTimer._Ctx(timing, field)
 
 
