@@ -27,8 +27,10 @@
    counts exact, values within 1e-9 (f64) / 1e-4 (f32)
    absolute-or-relative; whether they are bit for bit equal is
    printed); the slab form ``esc_tail`` the same way over
-   the same widths, with row counts under w2 (NaN values and random keys
-   past them), empty rows and full rows; both tails also against a
+   the same widths and the padded widths W of ``PADDED_WS`` (rows of W
+   slots sorted in segments of the next power of two), with row counts
+   under W (NaN values and random keys past them), empty rows and full
+   rows; both tails also against a
    reference by ``torch.sort`` and ``index_add_`` that shares nothing of
    their algorithm (keys and counts exact, values within 1e-9 (f64) /
    1e-4 (f32) of the summed magnitudes); ``ragged_fill`` against its
@@ -192,9 +194,9 @@
    tile-path phase: the two
    suite members whose classes take the ESC tail's tile path (512 <= w2
    <= 8192), cage15 under ``planned="off"`` (its W=512 pre class; its
-   default plan is replanned to a W=384 gather class, which takes the
-   sort tail) and cop20k_A under the default config (its W=512 gather
-   class), each cold and warm (5 calls; both Cs against the oracle's
+   default plan is replanned to a W=384 gather class, which the tile
+   path takes padded to 512) and cop20k_A under the default config (its
+   W=512 gather class), each cold and warm (5 calls; both Cs against the oracle's
    digest in ``data/oracle_digest.json``, the tails' launch counts set to
    0 before each and read after its warm calls, which must have launched
    them), with their ``tail_classes`` lines; then both tails at cage15's
@@ -270,6 +272,9 @@ PAIR_KERNELS = {"pair_matmul_f64": "pair_matmul_kernelIdE",
                 "pair_matmul_f32": "pair_matmul_kernelIfE"}
 W2S = (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 32768,
        65536)
+# slab widths off the powers of two (the 1.5x grid's, and two that are
+# not multiples of 4), each sorted in segments of the next power of two
+PADDED_WS = (3, 6, 12, 100, 192, 384, 768, 1536, 3072, 6144, 8191)
 MATRICES = ("scircuit", "cage12", "webbase-1M")
 BD_MATRICES = ("pdb1HYS", "pwtk")
 SOURCES = ("esc_tail", "pair_matmul", "ragged_fill", "planned",
@@ -449,40 +454,43 @@ def kernel_phase(torch, et, dev) -> dict:
 
 
 def slab_tail_phase(torch, et, dev) -> dict:
-    """The slab form against its plain version: rows with counts under
-    w2 (NaN values and random keys past them), an empty and a full row.
-    Keys and counts exact, values within the flat tail's tolerances."""
+    """The slab form against its plain version: rows of W slots with
+    counts under W (NaN values and random keys past them), an empty and a
+    full row; W each power of two of ``W2S`` and each padded width of
+    ``PADDED_WS`` (sorted in segments of the next power of two).  Keys
+    and counts exact, values within the flat tail's tolerances."""
     errs = {torch.float64: 0.0, torch.float32: 0.0}
     tols = {torch.float64: 1e-9, torch.float32: 1e-4}
     for dtype in (torch.float64, torch.float32):
-        for w2 in W2S:
+        for W in W2S + PADDED_WS:
+            w2 = et.pad_w2(W)
             rows = max(4, (1 << 20) // w2)
-            rng = np.random.default_rng(w2 + 1)
-            keys = rng.integers(0, max(2, w2 // 4), (rows, w2)).astype(
+            rng = np.random.default_rng(W + 1)
+            keys = rng.integers(0, max(2, W // 4), (rows, W)).astype(
                 np.int32)
-            row_len = rng.integers(0, w2, rows).astype(np.int32)
-            row_len[0], row_len[1] = 0, w2
+            row_len = rng.integers(0, W, rows).astype(np.int32)
+            row_len[0], row_len[1] = 0, W
             keys[1] = 7
-            vals = rng.standard_normal((rows, w2))
-            vals[np.arange(w2)[None, :] >= row_len[:, None]] = np.nan
+            vals = rng.standard_normal((rows, W))
+            vals[np.arange(W)[None, :] >= row_len[:, None]] = np.nan
             k, rl = (torch.from_numpy(x).to(dev) for x in (keys, row_len))
             v = torch.from_numpy(vals).to(dtype).to(dev)
             oK, oV, cnt = et.esc_tail(k, v, rl, w2=w2)
             torch.cuda.synchronize()
             pK, pV, pc = et.esc_tail_plain(k, v, rl, w2=w2)
-            check(torch.equal(oK, pK), f"esc_tail keys differ at w2={w2}")
-            check(torch.equal(cnt, pc), f"esc_tail counts differ at w2={w2}")
+            check(torch.equal(oK, pK), f"esc_tail keys differ at W={W}")
+            check(torch.equal(cnt, pc), f"esc_tail counts differ at W={W}")
             err = (oV - pV).abs()
-            check(torch.equal(oV, pV), f"esc_tail values differ at w2={w2} "
+            check(torch.equal(oV, pV), f"esc_tail values differ at W={W} "
                   f"{dtype}: max abs err {float(err.max())}")
-            live = (torch.arange(w2, device=dev)[None, :]
+            live = (torch.arange(W, device=dev)[None, :]
                     < rl.long()[:, None])
             serr = check_sorted(torch, oK, oV, cnt,
                                 torch.where(live, k, I32_MAX),
                                 torch.where(live, v, 0.0), tols[dtype],
-                                f"esc_tail w2={w2} {dtype}")
+                                f"esc_tail W={W} {dtype}")
             errs[dtype] = max(errs[dtype], float(err.max()))
-            print(f"kernel esc_tail w2={w2:6d} {str(dtype):14s} "
+            print(f"kernel esc_tail W={W:6d} w2={w2:6d} {str(dtype):14s} "
                   f"rows={rows:7d} path={et.kernel_path(w2)} "
                   f"max_abs_err={float(err.max()):.3e} "
                   f"sort_ref_err={serr:.3e} exact=True ok", flush=True)
@@ -785,7 +793,7 @@ def tail_classes(et, bk, state) -> list:
         rows = c.nchunks * c.rb
         slots = rows * c.W
         nbytes = slots * (4 + front[1].element_size()) * 2
-        out.append({"W": c.W, "route": (et.kernel_path(c.W)
+        out.append({"W": c.W, "route": (et.kernel_path(et.pad_w2(c.W))
                                          if route == "kernel" else route),
                     "rows": rows, "slots": slots, "ms": cuda_ms(tail, 10),
                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})

@@ -1,5 +1,5 @@
 // ESC tail for Hopper (sm_90a): sort + accumulate + left-pack of aligned
-// power-of-two segments.
+// power-of-two segments, and of rows padded to one (below).
 //
 // Replaces two TPU kernels with one body (_tail_kernel, :200):
 //   * mh_spgemm_tpu/ops/esc_tail.py:234 esc_tail_flat, over flat planes
@@ -88,6 +88,19 @@
 // The slab form (row_len given) differs only in the load: the TPU kernel
 // masked the keys inside the kernel too, so its callers could hand over
 // slabs whose slots past a row's count hold whatever the fill left there.
+//
+// Padded rows (warp and tile paths): rows of w slots, w2/2 < w < w2 for
+// w2 the next power of two (the 1.5x width grid's 3, 6, 12, ..., 6144),
+// lie back to back at stride w and are sorted in segments of w2: the
+// same network and passes, with slots w..w2-1 of each segment empty in
+// registers, as slots past a row's count are.  A warp stages its part of
+// the tile's rows (k*w contiguous slots for k rows) with the same lane
+// loads, keys beside the values, and each lane picks its 8 positions
+// through (row, j) -> row*w + j; the packed rows are staged and stored at
+// stride w the same way (a row keeps at most w survivors).  What bounds
+// them: bytes at w (24 B a slot in f64), network work at w2 (up to 4/3
+// of a power-of-two width's per slot).  The global path takes powers of
+// two only.
 //
 // Plain C interface for ctypes.  Each function launches on the given
 // stream, does not synchronise, allocates nothing and returns
@@ -283,17 +296,71 @@ __device__ __forceinline__ void load_tile(const int* __restrict__ keys,
   }
 }
 
+// Padded rows, step 1: a warp's n slots (at most 256, from the tile's
+// rows back to back) into its stages, keys beside values in load order.
+// `v16`: 16-byte lane copies (n and the planes' offsets multiples of 4).
+template <typename V>
+__device__ __forceinline__ void stage_rows(const int* __restrict__ keys,
+                                           const V* __restrict__ vals, int n,
+                                           bool v16, int lane, int* skey,
+                                           V* sval) {
+  if (v16) {
+    constexpr int kValChunks = kWarpSlots * sizeof(V) / 16;
+    const int4* kp = reinterpret_cast<const int4*>(keys);
+    const int4* vp = reinterpret_cast<const int4*>(vals);
+    int4* sk = reinterpret_cast<int4*>(skey);
+    int4* sv = reinterpret_cast<int4*>(sval);
+    const int vc = n * static_cast<int>(sizeof(V)) / 16;
+#pragma unroll
+    for (int q = 0; q < kWarpSlots / 4 / 32; ++q) {
+      const int c = q * 32 + lane;
+      if (c < n / 4) sk[c ^ ((c >> 3) & 7)] = kp[c];
+    }
+#pragma unroll
+    for (int q = 0; q < kValChunks / 32; ++q) {
+      const int c = q * 32 + lane;
+      if (c < vc) sv[c ^ ((c >> 3) & 7)] = vp[c];
+    }
+  } else {
+    for (int s = lane; s < n; s += 32) {
+      skey[stage_pos<int>(s)] = keys[s];
+      sval[stage_pos<V>(s)] = vals[s];
+    }
+  }
+}
+
+// Padded rows, step 1 continued: a lane's 8 keys from the tile's key
+// stage.  Position p is slot j = p mod w2 of the tile's row p / w2, at
+// stage slot (p / w2) * w + j; slots j >= w and rows at or past nrows are
+// empty.  The slot index starts as the stage slot, where fetch_values
+// finds the value.
+template <int kLogW2>
+__device__ __forceinline__ void pick_rows(const int* skey, int stride,
+                                          int nrows, int pos0, int (&key)[8],
+                                          int (&src)[8]) {
+  constexpr int kW2 = 1 << kLogW2;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = (pos0 + r) >> kLogW2;
+    const int j = (pos0 + r) & (kW2 - 1);
+    const int s = row * stride + j;
+    const bool live = j < stride && row < nrows;
+    key[r] = live ? skey[stage_pos<int>(s)] : kEmpty;
+    src[r] = live ? s : 0;
+  }
+}
+
 // The slab form: slots at or past their row's count become empty.  pos0
-// is the lane's first position (a multiple of 8), g0 the warp's first
-// global slot.
+// is the lane's first position (a multiple of 8) in a tile whose first
+// row is row0 and which holds nrows rows.
 template <int kLogW2>
 __device__ __forceinline__ void mask_rows(const int* __restrict__ row_len,
-                                          long long g0, int n, int lane,
+                                          long long row0, int nrows,
                                           int pos0, int (&key)[8]) {
   constexpr int kW2 = 1 << kLogW2;
   if constexpr (kW2 >= 8) {             // a lane's 8 slots share one row
-    const int s = lane * 8;
-    const int len = s < n ? row_len[(g0 + s) >> kLogW2] : 0;
+    const int row = pos0 >> kLogW2;
+    const int len = row < nrows ? row_len[row0 + row] : 0;
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       if (((pos0 + r) & (kW2 - 1)) >= len) key[r] = kEmpty;
@@ -301,8 +368,9 @@ __device__ __forceinline__ void mask_rows(const int* __restrict__ row_len,
   } else {
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
-      const int s = lane * 8 + r;
-      if (s < n && (s & (kW2 - 1)) >= row_len[(g0 + s) >> kLogW2]) {
+      const int row = (pos0 + r) >> kLogW2;
+      if (row < nrows &&
+          ((pos0 + r) & (kW2 - 1)) >= row_len[row0 + row]) {
         key[r] = kEmpty;
       }
     }
@@ -523,10 +591,10 @@ __device__ __forceinline__ void clear_stage(int* skey, V* sval, int lane) {
 }
 
 // Step 6: the last slot of each valid run writes (key, sum) into the
-// output stage at its segment's start + rank - 1; the last slot of each
-// segment writes the count.  right7 (tile path): the key after lane 31's
-// last slot, read only where that slot does not end a segment.  g0 and n:
-// the global slot of position 0, and the positions that are slots.
+// output stage at its row's start (row * w) + rank - 1; the last slot of
+// each segment writes the row's count.  right7 (tile path): the key after
+// lane 31's last slot, read only where that slot does not end a segment.
+// row0 and nrows: the tile's first row and its rows.
 template <typename V, int kLogW2>
 __device__ __forceinline__ void pack_runs(const int (&key)[8],
                                           const V (&v)[8],
@@ -534,7 +602,8 @@ __device__ __forceinline__ void pack_runs(const int (&key)[8],
                                           int rank_in, int right7, int lane,
                                           int pos0, int* skey, V* sval,
                                           int* __restrict__ out_count,
-                                          long long g0, int n) {
+                                          long long row0, int nrows,
+                                          int stride) {
   constexpr int kW2 = 1 << kLogW2;
   int right_key = __shfl_down_sync(kFullMask, key[0], 1);
   if constexpr (kW2 > kWarpMaxW2) {
@@ -550,36 +619,40 @@ __device__ __forceinline__ void pack_runs(const int (&key)[8],
                                       ~((1u << (r & ~(kW2 - 1))) - 1));
     if (key[r] != kEmpty &&
         (seg_end || (r == 7 ? right_key : key[r + 1]) != key[r])) {
-      const int o = (i & ~(kW2 - 1)) + rank - 1;
+      const int o = (i >> kLogW2) * stride + rank - 1;
       skey[stage_pos<int>(o)] = key[r];
       sval[stage_pos<V>(o)] = v[r];
     }
-    if (seg_end && i < n) out_count[(g0 + i) >> kLogW2] = rank;
+    if (seg_end && (i >> kLogW2) < nrows) {
+      out_count[row0 + (i >> kLogW2)] = rank;
+    }
   }
 }
 
-// Step 6, second half: a warp's 256 staged slots out to global memory (n
-// of them are slots), with 16-byte lane stores where `whole`.
+// Step 6, second half: a warp's first n staged slots out to global
+// memory, with 16-byte lane stores where `v16` (n and the planes' offsets
+// multiples of 4).
 template <typename V>
 __device__ __forceinline__ void store_tile(const int* skey, const V* sval,
                                            int* __restrict__ out_key,
                                            V* __restrict__ out_val, int n,
-                                           bool whole, int lane) {
-  if (whole) {
+                                           bool v16, int lane) {
+  if (v16) {
     constexpr int kValChunks = kWarpSlots * sizeof(V) / 16;
     const int4* sk = reinterpret_cast<const int4*>(skey);
     const int4* sv = reinterpret_cast<const int4*>(sval);
     int4* ok = reinterpret_cast<int4*>(out_key);
     int4* ov = reinterpret_cast<int4*>(out_val);
+    const int vc = n * static_cast<int>(sizeof(V)) / 16;
 #pragma unroll
     for (int q = 0; q < kWarpSlots / 4 / 32; ++q) {
       const int c4 = q * 32 + lane;
-      ok[c4] = sk[c4 ^ ((c4 >> 3) & 7)];
+      if (c4 < n / 4) ok[c4] = sk[c4 ^ ((c4 >> 3) & 7)];
     }
 #pragma unroll
     for (int q = 0; q < kValChunks / 32; ++q) {
       const int c4 = q * 32 + lane;
-      ov[c4] = sv[c4 ^ ((c4 >> 3) & 7)];
+      if (c4 < vc) ov[c4] = sv[c4 ^ ((c4 >> 3) & 7)];
     }
   } else {
     for (int s = lane; s < n; s += 32) {
@@ -589,35 +662,44 @@ __device__ __forceinline__ void store_tile(const int* skey, const V* sval,
   }
 }
 
-// w2 <= kWarpMaxW2: one tile of 256 slots per warp, in registers.  `vec`
-// says that all four planes are 16-byte aligned, so that a whole tile
-// moves with 16-byte lane loads and stores; the last, partial tile and
-// unaligned planes go slot by slot.
+// w2 <= kWarpMaxW2: one tile of 256 / w2 rows of w slots per warp, in
+// registers.  `vec` says that all four planes are 16-byte aligned, so
+// that a tile whose slots start and end on 16-byte boundaries moves with
+// 16-byte lane loads and stores; other tiles go slot by slot.
 template <typename V, int kLogW2>
 __global__ void __launch_bounds__(kWarpThreads)
 tail_warp(const int* __restrict__ keys, const V* __restrict__ vals,
           const int* __restrict__ row_len, int* __restrict__ out_key,
           V* __restrict__ out_val, int* __restrict__ out_count,
-          long long slots, bool vec) {
+          long long rows, int stride, bool vec) {
   constexpr int kW2 = 1 << kLogW2;
+  constexpr int kRows = kWarpSlots / kW2;
   __shared__ WarpStage<V> stages[kWarpThreads / 32];
   WarpStage<V>& st = stages[threadIdx.x >> 5];
   const int lane = threadIdx.x & 31;
   const int pos0 = lane * 8;
-  const long long g0 =
+  const long long row0 =
       (static_cast<long long>(blockIdx.x) * (kWarpThreads / 32) +
-       (threadIdx.x >> 5)) * kWarpSlots;
-  if (g0 >= slots) return;
-  const int n = slots - g0 < kWarpSlots ? static_cast<int>(slots - g0)
-                                        : kWarpSlots;
-  const bool whole = vec && n == kWarpSlots;
+       (threadIdx.x >> 5)) * kRows;
+  if (row0 >= rows) return;
+  const int nrows = rows - row0 < kRows ? static_cast<int>(rows - row0)
+                                        : kRows;
+  const long long g0 = row0 * stride;
+  const int n = nrows * stride;
+  const bool v16 = vec && ((g0 | n) & 3) == 0;
 
-  int key[8];
-  load_tile<V>(keys, vals, g0, n, whole, lane, key, st.val);
-  if (row_len != nullptr) mask_rows<kLogW2>(row_len, g0, n, lane, pos0, key);
-  int src[8];
+  int key[8], src[8];
+  if (stride == kW2) {
+    load_tile<V>(keys, vals, g0, n, v16 && n == kWarpSlots, lane, key,
+                 st.val);
 #pragma unroll
-  for (int r = 0; r < 8; ++r) src[r] = pos0 + r;
+    for (int r = 0; r < 8; ++r) src[r] = pos0 + r;
+  } else {
+    stage_rows<V>(keys + g0, vals + g0, n, v16, lane, st.key, st.val);
+    __syncwarp();
+    pick_rows<kLogW2>(st.key, stride, nrows, pos0, key, src);
+  }
+  if (row_len != nullptr) mask_rows<kLogW2>(row_len, row0, nrows, pos0, key);
 #pragma unroll
   for (int lk = 1; lk <= kLogW2; ++lk) {
     warp_merge<kW2>(key, src, lane, pos0, lk);
@@ -634,9 +716,9 @@ tail_warp(const int* __restrict__ keys, const V* __restrict__ vals,
   clear_stage<V>(st.key, st.val, lane);
   __syncwarp();
   pack_runs<V, kLogW2>(key, v, valid_starts, rank_in, kEmpty, lane, pos0,
-                       st.key, st.val, out_count, g0, n);
+                       st.key, st.val, out_count, row0, nrows, stride);
   __syncwarp();
-  store_tile<V>(st.key, st.val, out_key + g0, out_val + g0, n, whole, lane);
+  store_tile<V>(st.key, st.val, out_key + g0, out_val + g0, n, v16, lane);
 }
 
 // The tile path's block: a tile of max(w2, kTileMinSlots) slots, 256 a
@@ -664,9 +746,10 @@ __global__ void __launch_bounds__(tile_slots(kLogW2) / 8)
 tail_tile(const int* __restrict__ keys, const V* __restrict__ vals,
           const int* __restrict__ row_len, int* __restrict__ out_key,
           V* __restrict__ out_val, int* __restrict__ out_count,
-          long long slots, bool vec) {
+          long long rows, int stride, bool vec) {
   constexpr int kW2 = 1 << kLogW2;
   constexpr int kSlots = tile_slots(kLogW2);
+  constexpr int kRows = kSlots / kW2;
   constexpr int kWarps = kSlots / kWarpSlots;
   constexpr int kSegWarps = kW2 / kWarpSlots;
   // a block of 1024 threads (w2 = 8192) leaves a thread 64 registers
@@ -681,19 +764,34 @@ tail_tile(const int* __restrict__ keys, const V* __restrict__ vals,
   const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int pos0 = w * kWarpSlots + lane * 8;
-  const long long g0 =
-      static_cast<long long>(blockIdx.x) * kSlots + w * kWarpSlots;
-  // slots and the tile are multiples of w2, so a warp's 256 positions
-  // are all slots or all padding, and so is a segment's every warp
-  const int n = g0 < slots ? kWarpSlots : 0;
-  const bool whole = vec && n == kWarpSlots;
+  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
+  const int nrows = rows - row0 < kRows ? static_cast<int>(rows - row0)
+                                        : kRows;
+  // the block's slots from global slot gb, the warp's n of them from g0:
+  // at stride = w2 a warp's 256 positions are all slots or all padding,
+  // and so is a segment's every warp
+  const long long gb = row0 * stride;
+  const int nb = nrows * stride;
+  const int n = min(max(nb - w * kWarpSlots, 0), kWarpSlots);
+  const long long g0 = gb + w * kWarpSlots;
+  const bool v16 = vec && ((gb | nb) & 3) == 0;
 
-  int key[8];
-  load_tile<V>(keys, vals, g0, n, whole, lane, key, sval + w * kWarpSlots);
-  if (row_len != nullptr) mask_rows<kLogW2>(row_len, g0, n, lane, pos0, key);
-  int src[8];
+  int key[8], src[8];
+  if (stride == kW2) {
+    load_tile<V>(keys, vals, g0, n, v16 && n == kWarpSlots, lane, key,
+                 sval + w * kWarpSlots);
 #pragma unroll
-  for (int r = 0; r < 8; ++r) src[r] = pos0 + r;
+    for (int r = 0; r < 8; ++r) src[r] = pos0 + r;
+  } else {
+    // the keys wait in the second exchange buffer, which the network
+    // first writes after its first cross-warp stage's barrier
+    int* kstage = reinterpret_cast<int*>(xraw + kSlots * sizeof(int2));
+    stage_rows<V>(keys + g0, vals + g0, n, v16, lane,
+                  kstage + w * kWarpSlots, sval + w * kWarpSlots);
+    __syncthreads();
+    pick_rows<kLogW2>(kstage, stride, nrows, pos0, key, src);
+  }
+  if (row_len != nullptr) mask_rows<kLogW2>(row_len, row0, nrows, pos0, key);
   int2* xkey = reinterpret_cast<int2*>(xraw);
   int parity = 0;
 #pragma unroll
@@ -769,11 +867,10 @@ tail_tile(const int* __restrict__ keys, const V* __restrict__ vals,
   __syncthreads();
   const int right7 = seg_last ? kEmpty : warp_first[w + 1];
   pack_runs<V, kLogW2>(key, v, starts, rank, right7, lane, pos0,
-                       skey, sval, out_count, g0 - w * kWarpSlots,
-                       n == 0 ? 0 : kSlots);
+                       skey, sval, out_count, row0, nrows, stride);
   __syncthreads();
   store_tile<V>(skey + w * kWarpSlots, sval + w * kWarpSlots, out_key + g0,
-                out_val + g0, n, whole, lane);
+                out_val + g0, n, v16, lane);
 }
 
 // Whether all four planes are 16-byte aligned, so that whole tiles move
@@ -789,32 +886,35 @@ bool aligned16(const int* keys, const V* vals, const int* out_key,
 
 template <typename V>
 using TailKernel = void (*)(const int*, const V*, const int*, int*, V*, int*,
-                            long long, bool);
+                            long long, int, bool);
 
-// The warp path for segments of 2^lw2 slots (1 <= lw2 <= 8).
+// The warp path for rows of `stride` slots in segments of 2^lw2 (1 <=
+// lw2 <= 8).
 template <typename V>
 void launch_warp(int lw2, const int* keys, const V* vals,
                  const int* row_len, int* out_key, V* out_val,
-                 int* out_count, long long slots, cudaStream_t stream) {
+                 int* out_count, long long rows, int stride,
+                 cudaStream_t stream) {
   const TailKernel<V> kernels[] = {tail_warp<V, 1>, tail_warp<V, 2>,
                                    tail_warp<V, 3>, tail_warp<V, 4>,
                                    tail_warp<V, 5>, tail_warp<V, 6>,
                                    tail_warp<V, 7>, tail_warp<V, 8>};
-  const long long tiles = (slots + kWarpSlots - 1) / kWarpSlots;
+  const long long per = kWarpSlots >> lw2;          // rows of a tile
+  const long long tiles = (rows + per - 1) / per;
   const long long blocks = (tiles + kWarpThreads / 32 - 1) /
                            (kWarpThreads / 32);
   kernels[lw2 - 1]<<<static_cast<unsigned>(blocks), kWarpThreads, 0,
                      stream>>>(keys, vals, row_len, out_key, out_val,
-                               out_count, slots,
+                               out_count, rows, stride,
                                aligned16(keys, vals, out_key, out_val));
 }
 
-// The tile path for segments of 2^lw2 slots (9 <= lw2 <= 13): one block
-// of tile_slots(lw2) / 8 threads a tile.
+// The tile path for rows of `stride` slots in segments of 2^lw2 (9 <=
+// lw2 <= 13): one block of tile_slots(lw2) / 8 threads a tile.
 template <typename V>
 cudaError_t launch_tile(int lw2, const int* keys, const V* vals,
                         const int* row_len, int* out_key, V* out_val,
-                        int* out_count, long long slots,
+                        int* out_count, long long rows, int stride,
                         cudaStream_t stream) {
   const TailKernel<V> kernels[] = {tail_tile<V, 9>, tail_tile<V, 10>,
                                    tail_tile<V, 11>, tail_tile<V, 12>,
@@ -826,9 +926,10 @@ cudaError_t launch_tile(int lw2, const int* keys, const V* vals,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int tile = tile_slots(lw2);
-  const long long blocks = (slots + tile - 1) / tile;
+  const long long per = tile >> lw2;                // rows of a tile
+  const long long blocks = (rows + per - 1) / per;
   kernel<<<static_cast<unsigned>(blocks), tile / 8, smem, stream>>>(
-      keys, vals, row_len, out_key, out_val, out_count, slots,
+      keys, vals, row_len, out_key, out_val, out_count, rows, stride,
       aligned16(keys, vals, out_key, out_val));
   return cudaSuccess;
 }
@@ -843,25 +944,38 @@ Path path_for(int w2) {
   return w2 <= kSmemMaxW2 ? kPathTile : kPathGlobal;
 }
 
+// The segment width for rows of w slots: the next power of two.
+int pad_w2(int w) {
+  int w2 = 1;
+  while (w2 < w && w2 <= 65536) w2 <<= 1;
+  return w2;
+}
+
+// Rows of `stride` slots (slots / stride of them), sorted in segments of
+// w2 = pad_w2(stride); a stride under w2 pads in registers, which the
+// warp and tile paths do and the global path does not.
 template <typename V>
 int launch(const int* keys, const V* vals, const int* row_len,
            int* out_key, V* out_val, int* out_count, long long slots,
-           int w2, void* scratch, cudaStream_t stream) {
+           int stride, void* scratch, cudaStream_t stream) {
+  const int w2 = pad_w2(stride);
   const Path path = path_for(w2);
-  if (path == kPathNone || slots <= 0 || slots % w2 != 0) {
+  if (path == kPathNone || slots <= 0 || slots % stride != 0 ||
+      (stride != w2 && path == kPathGlobal)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const long long rows = slots / stride;
   if (path == kPathWarp) {
     launch_warp<V>(__builtin_ctz(w2), keys, vals, row_len, out_key, out_val,
-                   out_count, slots, stream);
+                   out_count, rows, stride, stream);
   } else if (path == kPathTile) {
     const cudaError_t err =
         launch_tile<V>(__builtin_ctz(w2), keys, vals, row_len, out_key,
-                       out_val, out_count, slots, stream);
+                       out_val, out_count, rows, stride, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   } else {
     if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    tail_global<V><<<static_cast<unsigned>(slots / w2), kThreads, 0,
+    tail_global<V><<<static_cast<unsigned>(rows), kThreads, 0,
                      stream>>>(keys, vals, row_len, out_key, out_val,
                                out_count, slots, w2,
                                static_cast<unsigned char*>(scratch));
@@ -885,9 +999,11 @@ long long esc_tail_flat_scratch_bytes(long long slots, int w2,
   return slots * (2LL * value_bytes + 12);
 }
 
+// The flat form: aligned segments of w2 slots, a power of two.
 int esc_tail_flat_f64(const int* keys, const double* vals, int* out_key,
                       double* out_val, int* out_count, long long slots,
                       int w2, void* scratch, void* stream) {
+  if (pad_w2(w2) != w2) return static_cast<int>(cudaErrorInvalidValue);
   return launch<double>(keys, vals, nullptr, out_key, out_val, out_count,
                         slots, w2, scratch, static_cast<cudaStream_t>(stream));
 }
@@ -895,25 +1011,28 @@ int esc_tail_flat_f64(const int* keys, const double* vals, int* out_key,
 int esc_tail_flat_f32(const int* keys, const float* vals, int* out_key,
                       float* out_val, int* out_count, long long slots,
                       int w2, void* scratch, void* stream) {
+  if (pad_w2(w2) != w2) return static_cast<int>(cudaErrorInvalidValue);
   return launch<float>(keys, vals, nullptr, out_key, out_val, out_count,
                        slots, w2, scratch, static_cast<cudaStream_t>(stream));
 }
 
-// The slab form: keys/vals [rows, w2], row_len int32[rows].
+// The slab form: keys/vals [rows, w], row_len int32[rows]; w a power of
+// two in 2..65536, or any w from 3 to 8192, padded to the next power of
+// two in registers.
 int esc_tail_f64(const int* keys, const double* vals, const int* row_len,
                  int* out_key, double* out_val, int* out_count,
-                 long long slots, int w2, void* scratch, void* stream) {
+                 long long slots, int w, void* scratch, void* stream) {
   if (row_len == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch<double>(keys, vals, row_len, out_key, out_val, out_count,
-                        slots, w2, scratch, static_cast<cudaStream_t>(stream));
+                        slots, w, scratch, static_cast<cudaStream_t>(stream));
 }
 
 int esc_tail_f32(const int* keys, const float* vals, const int* row_len,
                  int* out_key, float* out_val, int* out_count,
-                 long long slots, int w2, void* scratch, void* stream) {
+                 long long slots, int w, void* scratch, void* stream) {
   if (row_len == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch<float>(keys, vals, row_len, out_key, out_val, out_count,
-                       slots, w2, scratch, static_cast<cudaStream_t>(stream));
+                       slots, w, scratch, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -47,8 +47,16 @@ batch as one ``[nchunks * rb, W]`` slab):
   ``esc_tail_flat`` on the flat pre slabs, the slab form ``esc_tail``
   with the plan's ``row_len`` on fill and gather slabs) sorts each row's
   W slots by column, sums equal columns and left-packs the survivors;
-* wider W (or ``esc_tail="off"``): the sort tail in torch ops, the port
-  of the JAX package's XLA tail (``_chunk_tail``).
+* any other W up to 8192 (the 1.5x grid's classes, never a pre class) on
+  CUDA: the slab kernel, each row padded in registers to the next power
+  of two; their sums are added in the kernel's network order, which is
+  within rounding of the JAX package's, not bit for bit;
+* the rest (``esc_tail="off"``, W past 8192 off the powers of two, and
+  the other widths on CPU tensors, which so keep the JAX package's bits):
+  the sort tail in torch ops, the port of the JAX package's XLA tail
+  (``_chunk_tail``).
+
+:func:`tail_route` decides among them.
 
 Extraction copies the left-packed row slabs into one CSR.  The first call
 learns nnz(C) per row with one small device-to-host copy; later calls use
@@ -210,6 +218,9 @@ class BucketPlan:
     # slots that went through each tail, summed over this plan's runs
     tail_slots: Dict[str, int] = dataclasses.field(
         default_factory=lambda: {"direct": 0, "kernel": 0, "sort": 0})
+    # of the kernel's, those of classes whose W is not a power of two
+    # (padded in registers), summed over this plan's runs
+    tail_padded_slots: int = 0
     # the legacy-replan decision (pipeline.prepare_bucketed_state): this
     # plan replaced a discarded planned plan; the demoted share of that
     # judged plan (None where no plan was judged); its demoted classes
@@ -221,7 +232,8 @@ class BucketPlan:
         """Occupancy and padding counters, with the JAX package's keys;
         ``frontend`` names the frontend each class runs.  The port adds
         the replan decision: ``replanned``, ``replan_share`` (compared
-        with ``_REPLAN_SHARE``) and ``demoted_classes``."""
+        with ``_REPLAN_SHARE``) and ``demoted_classes``; and
+        ``padded_tail_slots`` (``tail_padded_slots``)."""
         area = sum(c.W * c.rb * c.nchunks for c in self.classes)
         return {
             "engine": "bucketed",
@@ -233,6 +245,7 @@ class BucketPlan:
             "replan_share": (None if self.replan_share is None
                              else round(self.replan_share, 3)),
             "demoted_classes": self.demoted_classes,
+            "padded_tail_slots": self.tail_padded_slots,
             "classes": [
                 {"W": c.W, "chunks": c.nchunks, "rows_per_chunk": c.rb,
                  "rows": int((c.rows_g >= 0).sum()),
@@ -1474,18 +1487,31 @@ _FRONT_SPANS = {f: "front." + f for f in ("fill", "planned", "pre",
                                            "gather")}
 
 
+def tail_route(W: int, route: str, device_type: str) -> str:
+    """The tail that a class of width W takes: ``"direct"`` for W = 1;
+    ``"kernel"`` where ``route`` is "kernel" and the kernel takes W (a
+    power of two up to 65536 on any device, CPU tensors running its plain
+    version; on CUDA also any other W up to 8192, padded in registers);
+    else ``"sort"``."""
+    if W == 1:
+        return "direct"
+    if route != "kernel":
+        return "sort"
+    if esc_tail_mod.supported_w2(W) or (device_type == "cuda"
+                                        and esc_tail_mod.supported_w(W)):
+        return "kernel"
+    return "sort"
+
+
 def _flat_tail(K, prod, valid, *, W: int, rows: int, seg_passes: int,
                route: str, counts: Dict[str, int]):
-    """Tail of a precomputed class over flat ``[rows * W]`` planes, routed
-    by width: W = 1 is the direct path; ``route == "kernel"`` sends pow2
-    widths up to 65536 through ``esc_tail_flat``; every other width (and
-    ``route == "sort"``) takes the sort tail.  Adds the class's slots to
-    ``counts`` under the route taken.  Returns (oC [L], oV [L],
-    nnz_row [rows])."""
+    """Tail of a precomputed class (W a power of two) over flat ``[rows *
+    W]`` planes, routed by :func:`tail_route`: the direct path, the
+    kernel's flat form ``esc_tail_flat`` or the sort tail.  Adds the
+    class's slots to ``counts`` under the route taken.  Returns (oC [L],
+    oV [L], nnz_row [rows])."""
     L = rows * W
-    tail = ("direct" if W == 1
-            else "kernel" if route == "kernel"
-            and esc_tail_mod.supported_w2(W) else "sort")
+    tail = tail_route(W, route, K.device.type)
     counts[tail] += L
     with span(_TAIL_SPANS[tail], W=W):
         if tail == "direct":
@@ -1500,21 +1526,21 @@ def _flat_tail(K, prod, valid, *, W: int, rows: int, seg_passes: int,
 def slab_tail(K, prod, row_len, *, W: int, seg_passes: int, route: str,
               counts: Dict[str, int]):
     """Tail of a ``[rows, W]`` slab whose slots at and past ``row_len``
-    are empty (the JAX package's ``_chunk_tail``): ``route == "kernel"``
-    sends pow2 widths up to 65536 through the slab kernel ``esc_tail``
-    with ``row_len``; otherwise the slots are masked and W = 1 takes the
-    direct path, any other width the sort tail.  Returns flat (oC [L],
-    oV [L], nnz_row [rows])."""
+    are empty (the JAX package's ``_chunk_tail``), routed by
+    :func:`tail_route`: the slab kernel ``esc_tail`` with ``row_len``
+    (rows padded to the next power of two where W is none); otherwise the
+    slots are masked and W = 1 takes the direct path, any other width the
+    sort tail.  Returns flat (oC [L], oV [L], nnz_row [rows])."""
     rows = K.shape[0]
     L = rows * W
-    tail = ("kernel" if W > 1 and route == "kernel"
-            and esc_tail_mod.supported_w2(W)
-            else "direct" if W == 1 else "sort")
+    tail = tail_route(W, route, K.device.type)
     counts[tail] += L
-    with span(_TAIL_SPANS[tail], W=W):
-        if tail == "kernel":
-            oC, oV, nnz_row = esc_tail_mod.esc_tail(K, prod, row_len, w2=W)
+    if tail == "kernel":
+        w2 = esc_tail_mod.pad_w2(W)
+        with span(_TAIL_SPANS[tail], W=W, w2=w2):
+            oC, oV, nnz_row = esc_tail_mod.esc_tail(K, prod, row_len, w2=w2)
             return oC.reshape(L), oV.reshape(L), nnz_row
+    with span(_TAIL_SPANS[tail], W=W):
         valid = (torch.arange(W, device=K.device)[None, :]
                  < row_len.to(torch.int64)[:, None])
         K = torch.where(valid, K, I32_MAX)
@@ -1561,10 +1587,18 @@ def bucketed_main(plan: BucketPlan, a_val, b_col, b_val, pairs2d=None, *,
                   route: str):
     """Main stage over every class; returns the per-class slabs
     ``[(cols [L], vals [L], nnz_row [rows])]``, left-packed per row.
-    ``pairs2d`` is the planar fill stream (needed when a class fills)."""
-    return [class_tail(c, class_front(c, d, a_val, b_col, b_val, pairs2d),
-                       route=route, counts=plan.tail_slots)
-            for c, d in zip(plan.classes, plan.dev)]
+    ``pairs2d`` is the planar fill stream (needed when a class fills).
+    Adds the slots of the classes that the kernel padded to
+    ``plan.tail_padded_slots``."""
+    slabs = []
+    for c, d in zip(plan.classes, plan.dev):
+        slabs.append(class_tail(
+            c, class_front(c, d, a_val, b_col, b_val, pairs2d),
+            route=route, counts=plan.tail_slots))
+        if c.W & (c.W - 1) and tail_route(c.W, route,
+                                          a_val.device.type) == "kernel":
+            plan.tail_padded_slots += c.nchunks * c.rb * c.W
+    return slabs
 
 
 def bucketed_counts(plan: BucketPlan, slabs):

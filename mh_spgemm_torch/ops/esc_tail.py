@@ -12,11 +12,14 @@ segment's output count.  The TPU kernel carried f64 values as double-f32
 (hi, lo) pairs; the card has native f64, so the port computes in its own
 value type.
 
-The slab form :func:`esc_tail` is the same function on ``[rows, w2]``
+The slab form :func:`esc_tail` is the same function on ``[rows, W]``
 with one addition: slot j of row r counts as empty (key 2^31-1, value 0)
 when ``j >= row_len[r]``, before the sort.  The fill frontend's slabs
 hold undefined words past each row's products, so the count, not the
-keys, says where a row ends.
+keys, says where a row ends.  W is ``w2`` or, up to 8192, any width
+above ``w2 / 2`` (the 1.5x width grid's classes): each row is then
+sorted as a segment of ``w2`` whose slots W..w2-1 are empty, and comes
+back at stride W (a row keeps at most W survivors).
 
 :func:`esc_tail_flat` and :func:`esc_tail` launch the CUDA kernel
 ``csrc/esc_tail.cu`` for CUDA tensors and take their plain versions only
@@ -26,6 +29,7 @@ for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -34,6 +38,7 @@ from ..errors import DeviceError
 
 I32_MAX = 2**31 - 1
 _MAX_W2 = 1 << 16
+_MAX_PADDED_W = 1 << 13        # the tile path's widest segment
 _PATHS = ("warp", "tile", "global")
 
 
@@ -41,6 +46,19 @@ def supported_w2(w: int) -> bool:
     """True when the flat tail takes segments of width ``w`` (a power of
     two in 2..65536)."""
     return 2 <= w <= _MAX_W2 and (w & (w - 1)) == 0
+
+
+def pad_w2(w: int) -> int:
+    """The segment width that rows of ``w`` slots sort in: the next power
+    of two at or above ``w``."""
+    return 1 << max(0, int(w) - 1).bit_length()
+
+
+def supported_w(w: int) -> bool:
+    """True when the slab tail takes rows of ``w`` slots: a width the flat
+    tail takes, or any width from 3 to 8192, padded to :func:`pad_w2` (the
+    kernel's warp and tile paths)."""
+    return supported_w2(w) or 2 < w <= _MAX_PADDED_W
 
 
 def kernel_path(w2: int) -> str:
@@ -112,19 +130,24 @@ def esc_tail_flat_plain(keys: torch.Tensor, vals: torch.Tensor, *,
     return _tail_plain(keys.view(S, w2), vals.view(S, w2))
 
 
-def _check(keys: torch.Tensor, vals: torch.Tensor, w2: int) -> None:
+def _check(keys: torch.Tensor, vals: torch.Tensor, w2: int,
+           w: Optional[int] = None) -> None:
+    w = w2 if w is None else w
     if not supported_w2(w2):
         raise ValueError(f"w2={w2}: segments must be a power of two in "
                          f"2..{_MAX_W2}")
+    if w != w2 and not (supported_w(w) and pad_w2(w) == w2):
+        raise ValueError(f"rows of {w} slots do not pad to w2={w2} (w2 / 2 "
+                         f"< W <= w2, and W <= {_MAX_PADDED_W} below w2)")
     if keys.dtype != torch.int32 or keys.dim() != 1:
         raise ValueError("keys must be a 1-D int32 tensor")
     if vals.dtype not in (torch.float64, torch.float32):
         raise ValueError(f"values of type {vals.dtype} are not supported")
     if vals.shape != keys.shape or vals.device != keys.device:
         raise ValueError("keys and values must match in shape and device")
-    if keys.shape[0] % w2:
+    if keys.shape[0] % w:
         raise ValueError(f"{keys.shape[0]} slots are not a multiple of "
-                         f"w2={w2}")
+                         f"{w}")
     if not (keys.is_contiguous() and vals.is_contiguous()):
         raise ValueError("keys and values must be contiguous")
 
@@ -188,30 +211,36 @@ esc_tail_flat.launches = 0
 def esc_tail_plain(keys: torch.Tensor, vals: torch.Tensor,
                    row_len: torch.Tensor, *, w2: int):
     """Plain PyTorch version of :func:`esc_tail` (same contract, same
-    order of additions): mask the slots past each row's count, then the
-    flat tail's steps."""
-    live = (torch.arange(w2, device=keys.device)[None, :]
+    order of additions): pad each row of W slots to ``w2`` with empty
+    slots (2^31-1, 0), mask the slots past each row's count, run the flat
+    tail's steps and cut each row back to W."""
+    rows, W = keys.shape
+    live = (torch.arange(W, device=keys.device)[None, :]
             < row_len.to(torch.int64)[:, None])
-    oK, oV, cnt = _tail_plain(
-        torch.where(live, keys, I32_MAX),
-        torch.where(live, vals, torch.zeros((), dtype=vals.dtype,
-                                            device=vals.device)))
-    return oK.view(keys.shape), oV.view(keys.shape), cnt
+    K = torch.full((rows, w2), I32_MAX, dtype=keys.dtype,
+                   device=keys.device)
+    V = torch.zeros((rows, w2), dtype=vals.dtype, device=vals.device)
+    K[:, :W] = torch.where(live, keys, I32_MAX)
+    V[:, :W] = torch.where(live, vals, torch.zeros((), dtype=vals.dtype,
+                                                   device=vals.device))
+    oK, oV, cnt = _tail_plain(K, V)
+    return (oK.view(rows, w2)[:, :W].contiguous(),
+            oV.view(rows, w2)[:, :W].contiguous(), cnt)
 
 
 def esc_tail(keys: torch.Tensor, vals: torch.Tensor, row_len: torch.Tensor,
              *, w2: int):
-    """Tail over ``[rows, w2]`` slabs with per-row counts; returns (packed
-    keys int32 [rows, w2], packed values [rows, w2], per-row output
-    counts int32 [rows]).  Slots at or past ``row_len[r]`` are empty
-    whatever they hold.
+    """Tail over ``[rows, W]`` slabs with per-row counts, ``w2 / 2 < W <=
+    w2`` (:func:`supported_w`); returns (packed keys int32 [rows, W],
+    packed values [rows, W], per-row output counts int32 [rows]).  Slots
+    at or past ``row_len[r]`` are empty whatever they hold.
 
     CUDA tensors go through the kernel (``csrc/esc_tail.cu``) on the
     current stream, and each launch adds one to ``esc_tail.launches``;
     CPU tensors take :func:`esc_tail_plain`.  Any other device raises."""
-    if keys.dim() != 2 or keys.shape[1] != w2:
-        raise ValueError(f"keys must be [rows, {w2}], got "
-                         f"{tuple(keys.shape)}")
+    if keys.dim() != 2:
+        raise ValueError(f"keys must be [rows, W], got {tuple(keys.shape)}")
+    W = keys.shape[1]
     if row_len.dtype != torch.int32 or row_len.shape != keys.shape[:1] \
             or row_len.device != keys.device \
             or not row_len.is_contiguous():
@@ -221,32 +250,32 @@ def esc_tail(keys: torch.Tensor, vals: torch.Tensor, row_len: torch.Tensor,
                                         and vals.is_contiguous()):
         raise ValueError("keys and values must be contiguous and of one "
                          "shape")
-    _check(keys.view(-1), vals.view(-1), w2)
+    _check(keys.view(-1), vals.view(-1), w2, W)
     if keys.device.type == "cpu":
         return esc_tail_plain(keys, vals, row_len, w2=w2)
     if keys.device.type != "cuda":
         raise DeviceError(f"esc_tail has no kernel for {keys.device.type} "
                           "tensors")
-    slots = keys.numel()
+    rows = keys.shape[0]
     out_k = torch.empty_like(keys)
     out_v = torch.empty_like(vals)
-    counts = torch.empty(keys.shape[0], dtype=torch.int32,
-                         device=keys.device)
-    if slots == 0:
+    counts = torch.empty(rows, dtype=torch.int32, device=keys.device)
+    if rows == 0:
         return out_k, out_v, counts
     lib, fn = _kernel_fn(vals.dtype, slab=True)
-    nbytes = lib.esc_tail_flat_scratch_bytes(slots, w2, vals.element_size())
+    nbytes = lib.esc_tail_flat_scratch_bytes(rows * w2, w2,
+                                             vals.element_size())
     scratch = (torch.empty(nbytes, dtype=torch.uint8, device=keys.device)
                if nbytes else None)
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(keys.data_ptr(), vals.data_ptr(), row_len.data_ptr(),
-                out_k.data_ptr(), out_v.data_ptr(), counts.data_ptr(), slots,
-                w2, scratch.data_ptr() if scratch is not None else None,
-                stream)
+                out_k.data_ptr(), out_v.data_ptr(), counts.data_ptr(),
+                keys.numel(), W,
+                scratch.data_ptr() if scratch is not None else None, stream)
     if rc != 0:
         raise DeviceError(f"esc_tail launch failed: CUDA error {rc} "
-                          f"(rows={keys.shape[0]}, w2={w2}, {vals.dtype})")
+                          f"(rows={rows}, W={W}, w2={w2}, {vals.dtype})")
     esc_tail.launches += 1
     return out_k, out_v, counts
 

@@ -8,7 +8,8 @@ driver's (``ns_per_product`` is a time; the JAX driver's
 ``floor_ns_per_product`` is a TPU figure the port does not print; the
 port's replan counters, ``replanned``, ``replan_share`` and
 ``demoted_classes``, have no JAX key and are checked in
-``test_torch_trace.py``).  Under ``--mode auto`` the two compare only
+``test_torch_trace.py``; so has its ``padded_tail_slots``, checked in
+``test_torch_padded_tail.py``).  Under ``--mode auto`` the two compare only
 where both chose the same engine.
 """
 
@@ -29,7 +30,8 @@ MATRICES = {
     "dense_band": lambda: gen.banded(384, band=50, nnz_per_row=50, seed=3),
 }
 TIMED = ("ns_per_product", "floor_ns_per_product")
-PORT_ONLY = ("replanned", "replan_share", "demoted_classes")
+PORT_ONLY = ("replanned", "replan_share", "demoted_classes",
+             "padded_tail_slots")
 
 
 @pytest.fixture(scope="module")

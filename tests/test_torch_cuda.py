@@ -29,8 +29,8 @@ from mh_spgemm_torch.ops import ragged_fill as rf
 from mh_spgemm_torch.ops import remote_fetch as rfx
 from mh_spgemm_torch.parallel.mesh import make_row_mesh
 from mh_spgemm_torch.parallel.spgemm_dist import spgemm_dist
-from mh_spgemm_torch.pipeline import (spgemm_blockdense, spgemm_bucketed,
-                                      spgemm_masked)
+from mh_spgemm_torch.pipeline import (BucketedState, spgemm_blockdense,
+                                      spgemm_bucketed, spgemm_masked)
 
 I32_MAX = 2**31 - 1
 
@@ -287,6 +287,105 @@ def test_tail_kernel_path_by_width(cuda, w2, path):
     assert et.kernel_path(w2) == path
     with pytest.raises(ValueError):
         et.kernel_path(w2 * 3)
+
+
+def tile_rows(w2: int) -> int:
+    """Rows of one kernel tile at segment width w2: 256 slots a warp on
+    the warp path, max(w2, 2048) a block on the tile path."""
+    return (256 if w2 <= 256 else max(w2, 2048)) // w2
+
+
+def slab_on_card(keys, vals, row_len, dtype, offset: int):
+    """The slab's planes on the card, each a view ``offset`` elements into
+    its buffer (not on a 16-byte boundary for an odd offset)."""
+    dev = torch.device("cuda")
+
+    def view(x, dt):
+        buf = torch.zeros(offset + x.size, dtype=dt, device=dev)
+        buf[offset:] = torch.from_numpy(x.reshape(-1)).to(dev, dt)
+        return buf[offset:].view(x.shape)
+
+    return (view(keys, torch.int32), view(vals, dtype),
+            torch.from_numpy(row_len).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("W", [3, 5, 6, 12, 24, 48, 96, 100, 192, 384, 768,
+                               1536, 3072, 6144, 8191])
+def test_padded_slab_tail_matches_plain(cuda, W, dtype, offset):
+    """Rows of W slots, W not a power of two, sorted in segments of the
+    next power of two: bit for bit the plain version (which pads by hand),
+    one launch, with a partial last tile where a tile holds more than one
+    row, row counts under W (NaN and random keys past them), an empty and
+    a full row; 16-byte lane copies where W is a multiple of 4 and the
+    planes are aligned, slot by slot otherwise."""
+    w2 = et.pad_w2(W)
+    per = tile_rows(w2)
+    rows = per * max(3, (1 << 16) // (per * w2)) + max(1, per // 2)
+    rng = np.random.default_rng(W)
+    keys = rng.integers(0, max(2, W // 4), (rows, W)).astype(np.int32)
+    row_len = rng.integers(0, W + 1, rows).astype(np.int32)
+    row_len[0], row_len[1] = W, 0
+    vals = rng.standard_normal((rows, W))
+    vals[np.arange(W)[None, :] >= row_len[:, None]] = np.nan
+    k, v, rl = slab_on_card(keys, vals, row_len, dtype, offset)
+    before = et.esc_tail.launches
+    out = et.esc_tail(k, v, rl, w2=w2)
+    torch.cuda.synchronize()
+    assert et.esc_tail.launches == before + 1
+    for a, b in zip(out, et.esc_tail_plain(k, v, rl, w2=w2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("w2", [2, 4, 8, 16, 32, 64, 128, 256, 512, 1024,
+                                2048, 4096, 8192])
+def test_pow2_slab_tail_unchanged(cuda, w2, dtype):
+    """At W = w2 the kernel keeps the contract that held it before rows
+    could be padded: bit for bit the bitonic network and scan of
+    ``_tail_plain`` on the masked [rows, w2] slab itself (the plain
+    version the earlier kernel equalled), a partial last tile included."""
+    per = tile_rows(w2)
+    rows = per * max(3, (1 << 16) // (per * w2)) + max(1, per // 2)
+    rng = np.random.default_rng(w2 + 7)
+    keys = rng.integers(0, max(2, w2 // 4), (rows, w2)).astype(np.int32)
+    row_len = rng.integers(0, w2 + 1, rows).astype(np.int32)
+    vals = rng.standard_normal((rows, w2))
+    k, v, rl = slab_on_card(keys, vals, row_len, dtype, 0)
+    oK, oV, cnt = et.esc_tail(k, v, rl, w2=w2)
+    live = torch.arange(w2, device=cuda)[None, :] < rl.long()[:, None]
+    pK, pV, pc = et._tail_plain(torch.where(live, k, I32_MAX),
+                                torch.where(live, v, 0.0))
+    assert torch.equal(oK.view(-1), pK) and torch.equal(cnt, pc)
+    assert torch.equal(oV.view(-1), pV)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matrix", ["er_192", "powerlaw_16_384"])
+def test_bucketed_padded_classes_take_the_kernel(cuda, matrix):
+    """A plan on the 1.5x width grid (the legacy replan's) on the card:
+    every class takes the tail kernel, the W = 192 and 384 classes padded
+    to 256 and 512, no slot the sort tail; C is the oracle's, cold and
+    warm."""
+    A = {"er_192": lambda: gen.random_uniform(2000, nnz_per_row=12, seed=9),
+         "powerlaw_16_384": lambda: gen.powerlaw(6000, avg_nnz=8,
+                                                 seed=42)}[matrix]()
+    plan = bk.plan_buckets(A.ptr, A.col, A.ptr, precompute=False)
+    assert any(c.W & (c.W - 1) for c in plan.classes)
+    st = BucketedState(plan=plan, device=cuda, route="kernel")
+    cfg = SpGEMMConfig(dma_fill="off", planned="off")
+    ref = oracle_spgemm(A, A)
+    before = et.esc_tail.launches
+    for _ in range(2):
+        C, st = spgemm_bucketed(A, A, cfg, state=st)
+        assert C.host().equals(ref, tol=1e-9)
+    assert st.plan.tail_slots["sort"] == 0
+    assert st.plan.tail_padded_slots > 0
+    assert st.plan.stats()["padded_tail_slots"] == st.plan.tail_padded_slots
+    assert et.esc_tail.launches >= before + 2 * len(plan.classes)
 
 
 def check_both_tails(keys, vals, row_len, w2: int, dtype, offset: int = 0):
