@@ -22,13 +22,14 @@
 3. Kernel phase: ``esc_tail_flat`` against its plain PyTorch version on
    the card for w2 in {2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048,
    4096, 8192, 32768, 65536} (the warp path up to 256, the tile path from
-   512, the global path above 8192; each line prints the path), f64 and
+   512, the wide path above 8192; each line prints the path), f64 and
    f32, on duplicate-heavy, empty and all-same-key segments (keys and
    counts exact, values within 1e-9 (f64) / 1e-4 (f32)
    absolute-or-relative; whether they are bit for bit equal is
    printed); the slab form ``esc_tail`` the same way over
-   the same widths and the padded widths W of ``PADDED_WS`` (rows of W
-   slots sorted in segments of the next power of two), with row counts
+   the same widths, the padded widths W of ``PADDED_WS`` (rows of W
+   slots sorted in segments of the next power of two) and the wide path's
+   widths of ``WIDE_WS`` (not powers of two, up to 786432), with row counts
    under W (NaN values and random keys past them), empty rows and full
    rows; both tails also against a
    reference by ``torch.sort`` and ``index_add_`` that shares nothing of
@@ -84,8 +85,9 @@
    took; then each stage of a warm call timed alone, the extraction by
    the gather and by the copy the plan has (windowed or planned), and
    each class's tail alone (the ``tail_classes`` line: W, the route
-   taken (the kernel's warp, tile or global path, the direct W = 1 path
-   or the sort tail; the kernel's path as its dispatch reports it), rows,
+   taken (the kernel's warp, tile or wide path, the direct W = 1 path
+   or the sort tail; the kernel's path as ``esc_tail.path_for`` names
+   it), rows,
    slots, ms and the byte bound), and the same under ``planned="off"``.
    Then the planned-versus-off phase: on each stand-in, cold calls (host
    wall clock, planning included) and warm calls (CUDA events) under the
@@ -275,6 +277,11 @@ W2S = (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 32768,
 # slab widths off the powers of two (the 1.5x grid's, and two that are
 # not multiples of 4), each sorted in segments of the next power of two
 PADDED_WS = (3, 6, 12, 100, 192, 384, 768, 1536, 3072, 6144, 8191)
+# slab widths past 8192 off the powers of two, on the wide path: rows of
+# 2 to 96 pieces of 8192 slots and 1 to 7 merge rounds, among them
+# g500_s15_ef16's W = 12288, 98304, 393216 and 786432 classes and one
+# whose last piece is short
+WIDE_WS = (12288, 40000, 98304, 393216, 786432)
 MATRICES = ("scircuit", "cage12", "webbase-1M")
 BD_MATRICES = ("pdb1HYS", "pwtk")
 SOURCES = ("esc_tail", "pair_matmul", "ragged_fill", "planned",
@@ -447,7 +454,7 @@ def kernel_phase(torch, et, dev) -> dict:
                                 f"esc_tail_flat w2={w2} {dtype}")
             errs[dtype] = max(errs[dtype], float(err.max()))
             print(f"kernel w2={w2:6d} {str(dtype):14s} slots={k.size:8d} "
-                  f"path={et.kernel_path(w2)} "
+                  f"path={et.path_for(w2)} "
                   f"max_abs_err={float(err.max()):.3e} "
                   f"sort_ref_err={serr:.3e} exact=True ok", flush=True)
     return errs
@@ -456,13 +463,17 @@ def kernel_phase(torch, et, dev) -> dict:
 def slab_tail_phase(torch, et, dev) -> dict:
     """The slab form against its plain version: rows of W slots with
     counts under W (NaN values and random keys past them), an empty and a
-    full row; W each power of two of ``W2S`` and each padded width of
-    ``PADDED_WS`` (sorted in segments of the next power of two).  Keys
-    and counts exact, values within the flat tail's tolerances."""
+    full row; W each power of two of ``W2S``, each padded width of
+    ``PADDED_WS`` (sorted in segments of the next power of two) and each
+    wide width of ``WIDE_WS`` (pieces of 8192 slots, the last one short
+    where 8192 does not divide W, then merge rounds).  Keys, counts and
+    values bit for bit against the plain version; keys and counts exact
+    and values within the flat tail's tolerances against the sort
+    reference."""
     errs = {torch.float64: 0.0, torch.float32: 0.0}
     tols = {torch.float64: 1e-9, torch.float32: 1e-4}
     for dtype in (torch.float64, torch.float32):
-        for W in W2S + PADDED_WS:
+        for W in W2S + PADDED_WS + WIDE_WS:
             w2 = et.pad_w2(W)
             rows = max(4, (1 << 20) // w2)
             rng = np.random.default_rng(W + 1)
@@ -491,7 +502,7 @@ def slab_tail_phase(torch, et, dev) -> dict:
                                 f"esc_tail W={W} {dtype}")
             errs[dtype] = max(errs[dtype], float(err.max()))
             print(f"kernel esc_tail W={W:6d} w2={w2:6d} {str(dtype):14s} "
-                  f"rows={rows:7d} path={et.kernel_path(w2)} "
+                  f"rows={rows:7d} path={et.path_for(w2)} "
                   f"max_abs_err={float(err.max()):.3e} "
                   f"sort_ref_err={serr:.3e} exact=True ok", flush=True)
     return errs
@@ -775,8 +786,9 @@ def planned_vs_off_phase(torch, mt, mats: dict, refs: dict, states: dict,
 def tail_classes(et, bk, state) -> list:
     """Each class's tail of ``state``'s plan timed alone (CUDA events over
     10 calls on its frontend's output): W, the route (the kernel's path
-    as ``csrc/esc_tail.cu`` dispatches it: ``warp`` / ``tile`` /
-    ``global``; ``direct`` for W = 1; ``sort``), rows, slots, ms and the
+    as ``esc_tail.path_for`` names ``csrc/esc_tail.cu``'s dispatch:
+    ``warp`` / ``tile`` / ``wide``; ``direct`` for W = 1; ``sort``),
+    rows, slots, ms and the
     byte bound (each slot's key and value read once and written once)."""
     plan = state.plan
     ops = (state.a_val, state.b_col, state.b_val, state.pairs)
@@ -793,7 +805,7 @@ def tail_classes(et, bk, state) -> list:
         rows = c.nchunks * c.rb
         slots = rows * c.W
         nbytes = slots * (4 + front[1].element_size()) * 2
-        out.append({"W": c.W, "route": (et.kernel_path(et.pad_w2(c.W))
+        out.append({"W": c.W, "route": (et.path_for(et.pad_w2(c.W))
                                          if route == "kernel" else route),
                     "rows": rows, "slots": slots, "ms": cuda_ms(tail, 10),
                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
@@ -914,7 +926,7 @@ def time_tail(torch, et, K, prod, w2: int, label: str, rl=None) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = adds / FP64_FLOPS * 1e3
     print(f"timing {name} on {label} W={w2} ({rows} rows, {slots} slots, "
-          f"{nlive} live) path={et.kernel_path(w2)}: {ms:.4f} ms, plain "
+          f"{nlive} live) path={et.path_for(w2)}: {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms (equal bit for bit), torch.sort by segment "
           f"{lib_ms:.4f} ms, folded {sort_ms:.4f} ms, bound "
           f"{max(bytes_ms, ops_ms):.4f} ms ({nbytes} B, {adds} adds)",
@@ -924,7 +936,7 @@ def time_tail(torch, et, K, prod, w2: int, label: str, rl=None) -> dict:
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "w2": w2, "slots": slots, "live_slots": nlive,
-            "path": et.kernel_path(w2), "exact": True}
+            "path": et.path_for(w2), "exact": True}
 
 
 def widest_front(bk, state, want):
@@ -996,7 +1008,7 @@ def tile_phase(torch, mt, et, bk, dev) -> tuple:
         else:
             (K, prod, rl), w2 = widest_front(bk, state,
                                              lambda c: not c.pre)
-        check(et.kernel_path(w2) == "tile",
+        check(et.path_for(w2) == "tile",
               f"{label}'s widest {form} class W={w2} is not on the tile path")
         timed[form] = time_tail(torch, et, K, prod, w2, label, rl=rl)
         del K, prod, rl, state, A

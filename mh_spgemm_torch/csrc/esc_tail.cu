@@ -7,17 +7,18 @@
 //   * mh_spgemm_tpu/ops/esc_tail.py:286 esc_tail, over [rows, w2] slabs
 //     with a per-row count row_len: slot j of row r is treated as empty
 //     (key 2^31-1, value 0) when j >= row_len[r], before the sort.
-// What it computes, per aligned segment of
-// w2 slots (2 <= w2 <= 65536, a power of two): the distinct keys in
-// ascending order with the sum of the values of each key, left-packed,
-// followed by 2^31-1 keys with value 0; the key 2^31-1 marks an empty
-// input slot.  It also writes each segment's output count.
+// What it computes, per aligned segment of w2 slots (a power of two from
+// 2), or per row of any W above 8192: the distinct keys in ascending
+// order with the sum of the values of each key, left-packed, followed by
+// 2^31-1 keys with value 0; the key 2^31-1 marks an empty input slot.
+// It also writes each segment's output count.
 //
 // Bound on the card: bytes.  Each slot is read once (4 B key + 8 B f64
 // value) and written once (4 + 8 B), 24 B a slot in f64; the work per
 // slot is O(log^2 w2) compare-exchanges, far under the card's integer
 // rate.  Every path keeps the intermediates out of device memory where
-// they fit, and every path computes the same thing in the same order:
+// they fit, and the warp and tile paths compute the same thing in the
+// same order (the wide path runs the tile path on pieces of a row):
 //   1. bitonic sort of each aligned segment by key, ties never swapping
 //      (the XOR partner of a compare-exchange never leaves the segment,
 //      so one network sorts all segments of a tile at once);
@@ -28,14 +29,14 @@
 //   4. the last slot of each valid run writes (key, sum) at its rank;
 //      slots at or past the segment's count write (2^31-1, 0).
 // Same network and same passes give the same permutation and the same
-// order of additions, so every path (and the plain version) agrees bit
-// for bit.  Three paths, by width:
+// order of additions, so the warp and tile paths (and the plain version)
+// agree bit for bit.  Three paths, by width:
 //
 //   * warp (w2 <= 256, tail_warp): one warp holds a tile of 256 slots,
 //     8 a lane (slot lane*8 + r in register r), with 256 / w2 whole
 //     segments.  Block barriers and a shared-memory round trip per
-//     stage would bound it (the global path below reads and writes every
-//     slot at each of the network's stages), so the network runs in
+//     stage would bound it (a network in memory reads and writes every
+//     slot at each of its stages), so the network runs in
 //     registers: partners 1-4 apart are compare-exchanges inside a lane,
 //     partners 8-128 apart __shfl_xor_sync across lanes, each a min or
 //     max of the keys that moves the slot index only where the key
@@ -79,11 +80,29 @@
 //     key read, the values of live slots read, every slot written;
 //     PERF.md); its in-warp network has 20 cross-lane stages there, the
 //     warp path's 15.
-//   * global (w2 > 8192, tail_global): a segment does not fit one
-//     block's shared memory; the same algorithm in a global scratch
-//     buffer that the caller allocates, one block per segment, a
-//     __syncthreads per stage and pass (bitonic_segments,
-//     accumulate_and_pack).
+//   * wide (rows of W > 8192 slots, any W, wide_pieces, wide_dups,
+//     wide_scan, wide_merge): a row does not fit one block's shared
+//     memory, and one block a row would leave most of the card idle where
+//     a class holds few rows.  Each row is cut into pieces of 8192 slots
+//     (the last one shorter where 8192 does not divide W), and the tile
+//     path's block sorts, sums and packs each piece (wide_pieces, one
+//     block a piece: the tile path's body at w2 = 8192, loading only the
+//     slots below the row's count).  Then ceil(log2(pieces)) rounds merge
+//     the packed runs pairwise, runs 2q and 2q+1 of a row into run q (a
+//     run without a partner is copied), between a global scratch plane
+//     that the caller allocates and the output planes, the last round
+//     into the output.  A round's merged sequence of a pair is cut into
+//     tiles of 2048 positions by merge path (ties take the left run
+//     first), one block a tile, so a pair of long runs keeps many blocks
+//     busy: wide_dups counts each tile's right-run keys that the left run
+//     also holds, wide_scan turns the counts into each tile's offset and
+//     the pair's count, and wide_merge writes the distinct keys with the
+//     left value plus the right one where both runs hold a key.  A run
+//     holds distinct keys, so a key meets at most one partner in a round.
+//     The order of additions is fixed: the tile path's inside a piece,
+//     then the merge tree's, left + right; the plain version follows it.
+//     Every run of a row lies in place at its first piece's slot, so the
+//     row's stride W bounds every buffer.
 //
 // The slab form (row_len given) differs only in the load: the TPU kernel
 // masked the keys inside the kernel too, so its callers could hand over
@@ -99,8 +118,8 @@
 // through (row, j) -> row*w + j; the packed rows are staged and stored at
 // stride w the same way (a row keeps at most w survivors).  What bounds
 // them: bytes at w (24 B a slot in f64), network work at w2 (up to 4/3
-// of a power-of-two width's per slot).  The global path takes powers of
-// two only.
+// of a power-of-two width's per slot).  The wide path takes any W above
+// 8192 as it is: its last piece of a row is short instead.
 //
 // Plain C interface for ctypes.  Each function launches on the given
 // stream, does not synchronise, allocates nothing and returns
@@ -112,128 +131,18 @@
 namespace {
 
 constexpr int kEmpty = 0x7fffffff;
-constexpr int kThreads = 1024;       // the global path's blocks
 constexpr int kSmemMaxW2 = 8192;     // widest segment of the tile path
 constexpr int kWarpMaxW2 = 256;      // widest segment of the warp path
 constexpr int kWarpSlots = 256;      // slots of one warp's tile, 8 a lane
 constexpr int kWarpThreads = 128;    // the warp path's blocks: 4 warps
 constexpr int kTileMinSlots = 2048;  // the tile path's narrowest block tile
+constexpr int kLogPiece = 13;        // the wide path's pieces: 8192 slots
+constexpr int kPieceSlots = 1 << kLogPiece;
+constexpr int kMergeThreads = 256;   // the wide path's merge blocks
+constexpr int kMergeItems = 8;       // merged positions a thread
+constexpr int kMergeTile = kMergeThreads * kMergeItems;
+constexpr long long kMaxWideW2 = 1LL << 30;   // widest flat segment
 constexpr unsigned kFullMask = 0xffffffffu;
-
-// Slot g is live unless a row count is given and g lies at or past its
-// segment's (row's) count.
-__device__ __forceinline__ bool slot_live(const int* row_len, long long g,
-                                          int w2) {
-  return row_len == nullptr ||
-         static_cast<int>(g & (w2 - 1)) < row_len[g / w2];
-}
-
-// The global path's steps.  Sort each aligned w2-wide segment of
-// key[0..n) ascending, moving val.
-template <typename V>
-__device__ void bitonic_segments(int* key, V* val, int n, int w2) {
-  for (int k = 2; k <= w2; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int p = threadIdx.x; p < (n >> 1); p += blockDim.x) {
-        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-        const int l = i | j;
-        // the final merge (k == w2) is ascending everywhere; earlier
-        // stages alternate by bit k of the in-segment index, which equals
-        // bit k of i because segments are aligned
-        const bool asc = (k == w2) || ((i & k) == 0);
-        const int ki = key[i];
-        const int kl = key[l];
-        if (ki != kl && ((ki > kl) == asc)) {
-          key[i] = kl;
-          key[l] = ki;
-          const V vi = val[i];
-          val[i] = val[l];
-          val[l] = vi;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// Steps 2-4 on sorted segments in buffers of n slots; the buffers start
-// at global slot g0 of the flat arrays.  v0/c0 are input, v1/c1 scratch.
-template <typename V>
-__device__ void accumulate_and_pack(const int* key, V* v0, V* v1, int* c0,
-                                    int* c1, int n, int w2, long long g0,
-                                    long long slots, int* out_key,
-                                    V* out_val, int* out_count) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int idx = i & (w2 - 1);
-    const int k = key[i];
-    c0[i] = (k != kEmpty && (idx == 0 || key[i - 1] != k)) ? 1 : 0;
-  }
-  __syncthreads();
-  V* va = v0;
-  V* vb = v1;
-  int* ca = c0;
-  int* cb = c1;
-  for (int d = 1; d < w2; d <<= 1) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      V v = va[i];
-      int c = ca[i];
-      if ((i & (w2 - 1)) >= d) {
-        if (key[i - d] == key[i]) v += va[i - d];
-        c += ca[i - d];
-      }
-      vb[i] = v;
-      cb[i] = c;
-    }
-    __syncthreads();
-    V* tv = va; va = vb; vb = tv;
-    int* tc = ca; ca = cb; cb = tc;
-  }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int idx = i & (w2 - 1);
-    const int s0 = i - idx;
-    const long long gs = g0 + s0;            // global start of segment
-    if (gs >= slots) continue;               // padding segment of a tile
-    const int count = ca[s0 + w2 - 1];
-    const int k = key[i];
-    const bool run_end =
-        k != kEmpty && (idx == w2 - 1 || key[i + 1] != k);
-    if (run_end) {
-      out_key[gs + ca[i] - 1] = k;
-      out_val[gs + ca[i] - 1] = va[i];
-    }
-    if (idx >= count) {
-      out_key[g0 + i] = kEmpty;
-      out_val[g0 + i] = V(0);
-    }
-    if (idx == 0) out_count[gs / w2] = count;
-  }
-}
-
-// w2 > kSmemMaxW2: one segment per block, worked in global scratch laid
-// out as [v0 | v1 | key | c0 | c1], each `slots` long.
-template <typename V>
-__global__ void __launch_bounds__(kThreads)
-tail_global(const int* __restrict__ keys, const V* __restrict__ vals,
-            const int* __restrict__ row_len, int* out_key, V* out_val,
-            int* out_count, long long slots, int w2,
-            unsigned char* scratch) {
-  const long long g0 = static_cast<long long>(blockIdx.x) * w2;
-  V* v0 = reinterpret_cast<V*>(scratch) + g0;
-  V* v1 = reinterpret_cast<V*>(scratch) + slots + g0;
-  int* key = reinterpret_cast<int*>(reinterpret_cast<V*>(scratch) +
-                                    2 * slots) + g0;
-  int* c0 = key + slots;
-  int* c1 = c0 + slots;
-  for (int i = threadIdx.x; i < w2; i += blockDim.x) {
-    const bool live = slot_live(row_len, g0 + i, w2);
-    key[i] = live ? keys[g0 + i] : kEmpty;
-    v0[i] = live ? vals[g0 + i] : V(0);
-  }
-  __syncthreads();
-  bitonic_segments(key, v0, w2, w2);
-  accumulate_and_pack(key, v0, v1, c0, c1, w2, w2, g0, slots, out_key,
-                      out_val, out_count);
-}
 
 // Index in a stage of slot s, for elements of T: 16-byte chunks
 // XOR-swizzled by bits 3-5 of the chunk index, so that 32 lanes reading
@@ -741,12 +650,20 @@ size_t tile_smem_bytes(int lw2) {
 // partners 256 or more apart, the heads' and counts' carries from the
 // earlier warps of a segment, the scan's cross-warp partners and the pack
 // go through shared memory, each with a __syncthreads.
-template <typename V, int kLogW2>
-__global__ void __launch_bounds__(tile_slots(kLogW2) / 8)
-tail_tile(const int* __restrict__ keys, const V* __restrict__ vals,
-          const int* __restrict__ row_len, int* __restrict__ out_key,
-          V* __restrict__ out_val, int* __restrict__ out_count,
-          long long rows, int stride, bool vec) {
+//
+// kPiece (the wide path's first step, w2 = kPieceSlots): the block's tile
+// is piece blockIdx.x % npieces of row blockIdx.x / npieces, the slots
+// [p * w2, min((p + 1) * w2, stride)) of a row of `stride` slots, and only
+// those below the row's count are loaded (the rest count as empty).  The
+// packed run goes out at the piece's own slots, cut at its count rounded
+// up to 4 (the 16-byte stores) and at the piece's end, and its count to
+// out_count[blockIdx.x].
+template <typename V, int kLogW2, bool kPiece>
+__device__ __forceinline__ void tile_body(
+    const int* __restrict__ keys, const V* __restrict__ vals,
+    const int* __restrict__ row_len, int* __restrict__ out_key,
+    V* __restrict__ out_val, int* __restrict__ out_count, long long rows,
+    int stride, bool vec, int npieces) {
   constexpr int kW2 = 1 << kLogW2;
   constexpr int kSlots = tile_slots(kLogW2);
   constexpr int kRows = kSlots / kW2;
@@ -764,20 +681,36 @@ tail_tile(const int* __restrict__ keys, const V* __restrict__ vals,
   const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int pos0 = w * kWarpSlots + lane * 8;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
-  const int nrows = rows - row0 < kRows ? static_cast<int>(rows - row0)
-                                        : kRows;
+  long long row0, gb;
+  int nrows, nb, nload;
+  if constexpr (kPiece) {
+    static_assert(kRows == 1, "a piece is one segment");
+    const long long row = blockIdx.x / npieces;
+    const int ps = static_cast<int>(blockIdx.x % npieces) << kLogW2;
+    row0 = blockIdx.x;
+    nrows = 1;
+    gb = row * stride + ps;
+    nb = min(stride - ps, kW2);
+    nload = row_len == nullptr ? nb : min(max(row_len[row] - ps, 0), nb);
+    if (nload == 0) {                   // the whole block: nothing live
+      if (threadIdx.x == 0) out_count[row0] = 0;
+      return;
+    }
+  } else {
+    row0 = static_cast<long long>(blockIdx.x) * kRows;
+    nrows = rows - row0 < kRows ? static_cast<int>(rows - row0) : kRows;
+    gb = row0 * stride;
+    nb = nload = nrows * stride;
+  }
   // the block's slots from global slot gb, the warp's n of them from g0:
   // at stride = w2 a warp's 256 positions are all slots or all padding,
   // and so is a segment's every warp
-  const long long gb = row0 * stride;
-  const int nb = nrows * stride;
-  const int n = min(max(nb - w * kWarpSlots, 0), kWarpSlots);
+  const int n = min(max(nload - w * kWarpSlots, 0), kWarpSlots);
   const long long g0 = gb + w * kWarpSlots;
   const bool v16 = vec && ((gb | nb) & 3) == 0;
 
   int key[8], src[8];
-  if (stride == kW2) {
+  if (kPiece || stride == kW2) {
     load_tile<V>(keys, vals, g0, n, v16 && n == kWarpSlots, lane, key,
                  sval + w * kWarpSlots);
 #pragma unroll
@@ -791,7 +724,9 @@ tail_tile(const int* __restrict__ keys, const V* __restrict__ vals,
     __syncthreads();
     pick_rows<kLogW2>(kstage, stride, nrows, pos0, key, src);
   }
-  if (row_len != nullptr) mask_rows<kLogW2>(row_len, row0, nrows, pos0, key);
+  if (!kPiece && row_len != nullptr) {
+    mask_rows<kLogW2>(row_len, row0, nrows, pos0, key);
+  }
   int2* xkey = reinterpret_cast<int2*>(xraw);
   int parity = 0;
 #pragma unroll
@@ -869,8 +804,284 @@ tail_tile(const int* __restrict__ keys, const V* __restrict__ vals,
   pack_runs<V, kLogW2>(key, v, starts, rank, right7, lane, pos0,
                        skey, sval, out_count, row0, nrows, stride);
   __syncthreads();
+  int nstore = n;
+  if constexpr (kPiece) {
+    const int count =
+        __reduce_add_sync(kFullMask, lane < kWarps ? warp_count[lane] : 0);
+    const int keep = min(v16 ? (count + 3) & ~3 : count, nb);
+    nstore = min(max(keep - w * kWarpSlots, 0), kWarpSlots);
+  }
   store_tile<V>(skey + w * kWarpSlots, sval + w * kWarpSlots, out_key + g0,
-                out_val + g0, n, v16, lane);
+                out_val + g0, nstore, v16, lane);
+}
+
+template <typename V, int kLogW2>
+__global__ void __launch_bounds__(tile_slots(kLogW2) / 8)
+tail_tile(const int* __restrict__ keys, const V* __restrict__ vals,
+          const int* __restrict__ row_len, int* __restrict__ out_key,
+          V* __restrict__ out_val, int* __restrict__ out_count,
+          long long rows, int stride, bool vec) {
+  tile_body<V, kLogW2, false>(keys, vals, row_len, out_key, out_val,
+                              out_count, rows, stride, vec, 1);
+}
+
+// The wide path's first step: each piece of each row sorted, summed and
+// packed by the tile path's body (above, kPiece).
+template <typename V>
+__global__ void __launch_bounds__(kPieceSlots / 8)
+wide_pieces(const int* __restrict__ keys, const V* __restrict__ vals,
+            const int* __restrict__ row_len, int* __restrict__ out_key,
+            V* __restrict__ out_val, int* __restrict__ out_count,
+            int stride, bool vec, int npieces) {
+  tile_body<V, kLogPiece, true>(keys, vals, row_len, out_key, out_val,
+                                out_count, 0, stride, vec, npieces);
+}
+
+// The wide path's merge rounds.  In a round, run g of a row starts at
+// slot g * run of the row (stride slots a row) and holds cin[row * nin +
+// g] keys, distinct and ascending, with their values; pair q merges runs
+// 2q (left, L) and 2q + 1 (right, R; none where 2q + 1 = nin) into run q
+// at slot 2q * run of the other buffer.  Block b works tile b % tiles,
+// merged positions [t * kMergeTile, +kMergeTile), of pair b / tiles.
+
+// The number of left keys among the first d merged positions (ties take
+// the left key first).
+__device__ __forceinline__ int merge_split(const int* L, int a, const int* R,
+                                          int b, int d) {
+  int lo = max(0, d - b);
+  int hi = min(d, a);
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (L[mid] <= R[d - 1 - mid]) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// A merge block's keys: its part of L and of R, the left key before the
+// first and the right key after the last, the part's first indices.
+struct MergeKeys {
+  int l[kMergeTile];
+  int r[kMergeTile];
+  int l_before, r_after, i0, j0, la, lb;
+};
+
+// A pair's runs as a block of a round sees them.
+struct MergePair {
+  long long base;          // the pair's first slot (L's) in its buffer
+  int a, b;                // keys of L and of R
+  int s, e;                // the tile's merged positions [s, e)
+};
+
+__device__ __forceinline__ MergePair merge_pair(const int* cin, int stride,
+                                                long long run, int nin,
+                                                int nout, int tiles) {
+  const long long pair = blockIdx.x / tiles;
+  const int t = static_cast<int>(blockIdx.x % tiles);
+  const long long row = pair / nout;
+  const int q = static_cast<int>(pair % nout);
+  MergePair m;
+  m.base = row * stride + 2 * q * run;
+  m.a = cin[row * nin + 2 * q];
+  m.b = 2 * q + 1 < nin ? cin[row * nin + 2 * q + 1] : 0;
+  m.s = t * kMergeTile;
+  m.e = min(m.s + kMergeTile, m.a + m.b);
+  return m;
+}
+
+// The block's keys into `mk` (needs m.s < m.a + m.b).
+__device__ __forceinline__ void merge_keys(const int* L, const int* R,
+                                           const MergePair& m,
+                                           MergeKeys& mk) {
+  if (threadIdx.x == 0) mk.i0 = merge_split(L, m.a, R, m.b, m.s);
+  if (threadIdx.x == 32) mk.la = merge_split(L, m.a, R, m.b, m.e);
+  __syncthreads();
+  const int i0 = mk.i0;
+  const int j0 = m.s - i0;
+  const int la = mk.la - i0;
+  const int lb = m.e - m.s - la;
+  for (int x = threadIdx.x; x < la; x += kMergeThreads) mk.l[x] = L[i0 + x];
+  for (int x = threadIdx.x; x < lb; x += kMergeThreads) mk.r[x] = R[j0 + x];
+  __syncthreads();                      // every thread has read mk.la
+  if (threadIdx.x == 0) {
+    mk.j0 = j0;
+    mk.la = la;
+    mk.lb = lb;
+    mk.l_before = i0 > 0 ? L[i0 - 1] : kEmpty;
+    mk.r_after = j0 + lb < m.b ? R[j0 + lb] : kEmpty;
+  }
+  __syncthreads();
+}
+
+// A thread's walk over its kMergeItems merged positions; returns how
+// many lie in the tile.  Bit k of `from_r`: position k takes a right key;
+// of `twin`: that right key's left twin came before it (a duplicate,
+// summed into the twin) or, for a left key, its right twin comes next.
+// li/lj: the position's index into mk.l / mk.r.
+__device__ __forceinline__ int merge_walk(const MergeKeys& mk,
+                                          int (&li)[kMergeItems],
+                                          int (&lj)[kMergeItems],
+                                          unsigned& from_r, unsigned& twin) {
+  const int d = threadIdx.x * kMergeItems;
+  const int n = min(max(mk.la + mk.lb - d, 0), kMergeItems);
+  from_r = twin = 0;
+  if (n == 0) return 0;
+  int i = merge_split(mk.l, mk.la, mk.r, mk.lb, d);
+  int j = d - i;
+#pragma unroll
+  for (int k = 0; k < kMergeItems; ++k) {
+    if (k >= n) break;
+    li[k] = i;
+    lj[k] = j;
+    if (i < mk.la && (j >= mk.lb || mk.l[i] <= mk.r[j])) {
+      const int other = j < mk.lb ? mk.r[j] : mk.r_after;
+      twin |= static_cast<unsigned>(other == mk.l[i]) << k;
+      ++i;
+    } else {
+      const int before = i > 0 ? mk.l[i - 1] : mk.l_before;
+      from_r |= 1u << k;
+      twin |= static_cast<unsigned>(before == mk.r[j]) << k;
+      ++j;
+    }
+  }
+  return n;
+}
+
+// Exclusive sum of x over a block of kMergeThreads; `total` gets the sum.
+__device__ __forceinline__ int block_scan(int x, int* warp_sums, int& total) {
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  int inc = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFullMask, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) warp_sums[w] = inc;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int v = 0; v < kMergeThreads / 32; ++v) {
+    const int ws = warp_sums[v];
+    if (v < w) before += ws;
+    total += ws;
+  }
+  __syncthreads();                      // warp_sums may be written again
+  return before + inc - x;
+}
+
+// Step 1 of a round: each tile's right keys whose left twin came before
+// them, into dups[blockIdx.x].
+__global__ void __launch_bounds__(kMergeThreads)
+wide_dups(const int* __restrict__ key, const int* __restrict__ cin,
+          int* __restrict__ dups, int stride, long long run, int nin,
+          int nout, int tiles) {
+  __shared__ MergeKeys mk;
+  __shared__ int warp_sums[kMergeThreads / 32];
+  const MergePair m = merge_pair(cin, stride, run, nin, nout, tiles);
+  if (m.s >= m.a + m.b) {
+    if (threadIdx.x == 0) dups[blockIdx.x] = 0;
+    return;
+  }
+  const int* L = key + m.base;
+  merge_keys(L, L + run, m, mk);
+  int li[kMergeItems], lj[kMergeItems];
+  unsigned from_r, twin;
+  merge_walk(mk, li, lj, from_r, twin);
+  int total;
+  block_scan(__popc(from_r & twin), warp_sums, total);
+  if (threadIdx.x == 0) dups[blockIdx.x] = total;
+}
+
+// Step 2: one block a pair turns its tiles' duplicates into each tile's
+// exclusive offset, in place, and writes the pair's merged count.
+__global__ void __launch_bounds__(kMergeThreads)
+wide_scan(int* __restrict__ dups, const int* __restrict__ cin,
+          int* __restrict__ cout, int nin, int nout, int tiles) {
+  __shared__ int warp_sums[kMergeThreads / 32];
+  const long long pair = blockIdx.x;
+  const long long row = pair / nout;
+  const int q = static_cast<int>(pair % nout);
+  int* d = dups + pair * tiles;
+  int carry = 0;
+  for (int t0 = 0; t0 < tiles; t0 += kMergeThreads) {
+    const int t = t0 + threadIdx.x;
+    int total;
+    const int ex = block_scan(t < tiles ? d[t] : 0, warp_sums, total);
+    if (t < tiles) d[t] = carry + ex;
+    carry += total;
+  }
+  if (threadIdx.x == 0) {
+    const int a = cin[row * nin + 2 * q];
+    const int b = 2 * q + 1 < nin ? cin[row * nin + 2 * q + 1] : 0;
+    cout[pair] = a + b - carry;
+  }
+}
+
+// Step 3: the tile's distinct keys, each with its left value plus its
+// right twin's, staged in shared memory and stored at the pair's run
+// from merged position s less the duplicates before the tile.  In the
+// last round (`last`, one run a row, into the output) the tile also
+// writes (2^31-1, 0) over its positions at or past the row's count.
+template <typename V>
+__global__ void __launch_bounds__(kMergeThreads)
+wide_merge(const int* __restrict__ key, const V* __restrict__ val,
+           const int* __restrict__ cin, const int* __restrict__ dups,
+           const int* __restrict__ cout, int* __restrict__ out_key,
+           V* __restrict__ out_val, int stride, long long run, int nin,
+           int nout, int tiles, bool last) {
+  __shared__ MergeKeys mk;
+  __shared__ int warp_sums[kMergeThreads / 32];
+  __shared__ int stage_key[kMergeTile];
+  __shared__ V stage_val[kMergeTile];
+  const MergePair m = merge_pair(cin, stride, run, nin, nout, tiles);
+  int* ok = out_key + m.base;
+  V* ov = out_val + m.base;
+  if (last) {
+    const int count = cout[blockIdx.x / tiles];
+    const int e = min(m.s + kMergeTile, stride);
+    for (int x = max(m.s, count) + threadIdx.x; x < e; x += kMergeThreads) {
+      ok[x] = kEmpty;
+      ov[x] = V(0);
+    }
+  }
+  if (m.s >= m.a + m.b) return;
+  const int* L = key + m.base;
+  const V* Lv = val + m.base;
+  merge_keys(L, L + run, m, mk);
+  int li[kMergeItems], lj[kMergeItems];
+  unsigned from_r, twin;
+  const int n = merge_walk(mk, li, lj, from_r, twin);
+  const unsigned dup = from_r & twin;
+  int total;
+  int o = block_scan(n - __popc(dup), warp_sums, total);
+  const int i0 = mk.i0;
+  const int j0 = mk.j0;
+#pragma unroll
+  for (int k = 0; k < kMergeItems; ++k) {
+    if (k >= n) break;
+    if ((dup >> k) & 1) continue;
+    if ((from_r >> k) & 1) {
+      stage_key[o] = mk.r[lj[k]];
+      stage_val[o] = Lv[run + j0 + lj[k]];
+    } else {
+      V v = Lv[i0 + li[k]];
+      if ((twin >> k) & 1) v += Lv[run + j0 + lj[k]];
+      stage_key[o] = mk.l[li[k]];
+      stage_val[o] = v;
+    }
+    ++o;
+  }
+  __syncthreads();
+  const int at = m.s - dups[blockIdx.x];
+  for (int x = threadIdx.x; x < total; x += kMergeThreads) {
+    ok[at + x] = stage_key[x];
+    ov[at + x] = stage_val[x];
+  }
 }
 
 // Whether all four planes are 16-byte aligned, so that whole tiles move
@@ -936,49 +1147,139 @@ cudaError_t launch_tile(int lw2, const int* keys, const V* vals,
 
 // The path that segments of w2 slots take; kPathNone for a width that
 // no path serves.
-enum Path { kPathNone = -1, kPathWarp = 0, kPathTile = 1, kPathGlobal = 2 };
+enum Path { kPathNone = -1, kPathWarp = 0, kPathTile = 1, kPathWide = 2 };
 
-Path path_for(int w2) {
-  if (w2 < 2 || w2 > 65536 || (w2 & (w2 - 1)) != 0) return kPathNone;
+Path path_for(long long w2) {
+  if (w2 < 2 || w2 > kMaxWideW2 || (w2 & (w2 - 1)) != 0) return kPathNone;
   if (w2 <= kWarpMaxW2) return kPathWarp;
-  return w2 <= kSmemMaxW2 ? kPathTile : kPathGlobal;
+  return w2 <= kSmemMaxW2 ? kPathTile : kPathWide;
 }
 
 // The segment width for rows of w slots: the next power of two.
-int pad_w2(int w) {
-  int w2 = 1;
-  while (w2 < w && w2 <= 65536) w2 <<= 1;
+long long pad_w2(long long w) {
+  long long w2 = 1;
+  while (w2 < w) w2 <<= 1;
   return w2;
 }
 
-// Rows of `stride` slots (slots / stride of them), sorted in segments of
-// w2 = pad_w2(stride); a stride under w2 pads in registers, which the
-// warp and tile paths do and the global path does not.
+// The wide path's buffers for rows of `stride` slots: a second pair of
+// planes (values, then keys), two arrays of run counts and one of the
+// tiles' duplicates, each from a 16-byte boundary of the caller's scratch.
+struct WideLayout {
+  long long rows, npieces, val_off, key_off, ca_off, cb_off, dups_off,
+      bytes;
+  int rounds;
+};
+
+long long align16(long long x) { return (x + 15) & ~15LL; }
+
+// Merge tiles of each pair in a round whose runs hold `run` slots.
+int merge_tiles(long long run, int stride) {
+  const long long cap = 2 * run < stride ? 2 * run : stride;
+  return static_cast<int>((cap + kMergeTile - 1) / kMergeTile);
+}
+
+WideLayout wide_layout(long long slots, int stride, int value_bytes) {
+  WideLayout g;
+  g.rows = slots / stride;
+  g.npieces = (stride + static_cast<long long>(kPieceSlots) - 1) / kPieceSlots;
+  g.rounds = 0;
+  while ((1LL << g.rounds) < g.npieces) ++g.rounds;
+  long long dups = 0;
+  long long nin = g.npieces;
+  for (long long run = kPieceSlots; nin > 1; run *= 2) {
+    const long long nout = (nin + 1) / 2;
+    const long long n = g.rows * nout * merge_tiles(run, stride);
+    if (n > dups) dups = n;
+    nin = nout;
+  }
+  g.val_off = 0;
+  g.key_off = align16(slots * value_bytes);
+  g.ca_off = g.key_off + align16(slots * 4);
+  g.cb_off = g.ca_off + align16(g.rows * g.npieces * 4);
+  g.dups_off = g.cb_off + align16(g.rows * ((g.npieces + 1) / 2) * 4);
+  g.bytes = g.dups_off + align16(dups * 4);
+  return g;
+}
+
+// Rows of `stride` > kSmemMaxW2 slots: the pieces, then the merge rounds,
+// ping-ponging between the scratch planes and the output planes so that
+// the last round lands in the output.
+template <typename V>
+cudaError_t launch_wide(const int* keys, const V* vals, const int* row_len,
+                        int* out_key, V* out_val, int* out_count,
+                        long long slots, int stride, unsigned char* scratch,
+                        cudaStream_t stream) {
+  const WideLayout g = wide_layout(slots, stride, sizeof(V));
+  int* bkey[2] = {reinterpret_cast<int*>(scratch + g.key_off), out_key};
+  V* bval[2] = {reinterpret_cast<V*>(scratch + g.val_off), out_val};
+  int* ca = reinterpret_cast<int*>(scratch + g.ca_off);
+  int* cb = reinterpret_cast<int*>(scratch + g.cb_off);
+  int* dups = reinterpret_cast<int*>(scratch + g.dups_off);
+  int cur = g.rounds % 2 == 1 ? 0 : 1;  // the pieces' buffer
+  const size_t smem = tile_smem_bytes<V>(kLogPiece);
+  cudaError_t err = cudaFuncSetAttribute(
+      wide_pieces<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  wide_pieces<V><<<static_cast<unsigned>(g.rows * g.npieces),
+                   kPieceSlots / 8, smem, stream>>>(
+      keys, vals, row_len, bkey[cur], bval[cur], ca, stride,
+      aligned16(keys, vals, bkey[cur], bval[cur]),
+      static_cast<int>(g.npieces));
+  int nin = static_cast<int>(g.npieces);
+  int* cin = ca;
+  for (int r = 1; r <= g.rounds; ++r) {
+    const long long run = static_cast<long long>(kPieceSlots) << (r - 1);
+    const int nout = (nin + 1) / 2;
+    const int tiles = merge_tiles(run, stride);
+    const bool last = r == g.rounds;
+    int* cnt = last ? out_count : (r % 2 == 1 ? cb : ca);
+    const unsigned pairs = static_cast<unsigned>(g.rows * nout);
+    const unsigned blocks = static_cast<unsigned>(g.rows * nout * tiles);
+    wide_dups<<<blocks, kMergeThreads, 0, stream>>>(
+        bkey[cur], cin, dups, stride, run, nin, nout, tiles);
+    wide_scan<<<pairs, kMergeThreads, 0, stream>>>(dups, cin, cnt, nin,
+                                                   nout, tiles);
+    wide_merge<V><<<blocks, kMergeThreads, 0, stream>>>(
+        bkey[cur], bval[cur], cin, dups, cnt, bkey[cur ^ 1], bval[cur ^ 1],
+        stride, run, nin, nout, tiles, last);
+    cur ^= 1;
+    cin = cnt;
+    nin = nout;
+  }
+  return cudaSuccess;
+}
+
+// Rows of `stride` slots (slots / stride of them): up to kSmemMaxW2,
+// sorted in segments of w2 = pad_w2(stride), a stride under w2 padded in
+// registers (the warp and tile paths); wider, the wide path, any stride.
 template <typename V>
 int launch(const int* keys, const V* vals, const int* row_len,
            int* out_key, V* out_val, int* out_count, long long slots,
            int stride, void* scratch, cudaStream_t stream) {
-  const int w2 = pad_w2(stride);
-  const Path path = path_for(w2);
-  if (path == kPathNone || slots <= 0 || slots % stride != 0 ||
-      (stride != w2 && path == kPathGlobal)) {
+  if (stride < 2 || slots <= 0 || slots % stride != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long rows = slots / stride;
-  if (path == kPathWarp) {
-    launch_warp<V>(__builtin_ctz(w2), keys, vals, row_len, out_key, out_val,
-                   out_count, rows, stride, stream);
-  } else if (path == kPathTile) {
-    const cudaError_t err =
-        launch_tile<V>(__builtin_ctz(w2), keys, vals, row_len, out_key,
-                       out_val, out_count, rows, stride, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  } else {
+  if (stride > kSmemMaxW2) {
     if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    tail_global<V><<<static_cast<unsigned>(rows), kThreads, 0,
-                     stream>>>(keys, vals, row_len, out_key, out_val,
-                               out_count, slots, w2,
-                               static_cast<unsigned char*>(scratch));
+    const cudaError_t err =
+        launch_wide<V>(keys, vals, row_len, out_key, out_val, out_count,
+                       slots, stride, static_cast<unsigned char*>(scratch),
+                       stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int lw2 = __builtin_ctzll(pad_w2(stride));
+  if (path_for(1LL << lw2) == kPathWarp) {
+    launch_warp<V>(lw2, keys, vals, row_len, out_key, out_val, out_count,
+                   rows, stride, stream);
+  } else {
+    const cudaError_t err =
+        launch_tile<V>(lw2, keys, vals, row_len, out_key, out_val,
+                       out_count, rows, stride, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -987,23 +1288,26 @@ int launch(const int* keys, const V* vals, const int* row_len,
 
 extern "C" {
 
-// The path that launch() takes for segments of w2 slots: 0 warp, 1 tile,
-// 2 global, -1 for an unsupported width.  Launches nothing.
-int esc_tail_path(int w2) { return static_cast<int>(path_for(w2)); }
+// The path that launch() takes for segments of w2 slots (and rows of w2
+// / 2 < W <= w2 slots): 0 warp, 1 tile, 2 wide, -1 for an unsupported
+// width.  Launches nothing.
+int esc_tail_path(long long w2) { return static_cast<int>(path_for(w2)); }
 
-// Bytes of global scratch the caller must pass for this shape (0 when
-// the segments fit shared memory).
-long long esc_tail_flat_scratch_bytes(long long slots, int w2,
+// Bytes of global scratch the caller must pass for `slots` slots in rows
+// of `w` (0 when the rows fit shared memory).
+long long esc_tail_flat_scratch_bytes(long long slots, int w,
                                       int value_bytes) {
-  if (path_for(w2) != kPathGlobal) return 0;
-  return slots * (2LL * value_bytes + 12);
+  if (w <= kSmemMaxW2 || slots <= 0) return 0;
+  return wide_layout(slots, w, value_bytes).bytes;
 }
 
 // The flat form: aligned segments of w2 slots, a power of two.
 int esc_tail_flat_f64(const int* keys, const double* vals, int* out_key,
                       double* out_val, int* out_count, long long slots,
                       int w2, void* scratch, void* stream) {
-  if (pad_w2(w2) != w2) return static_cast<int>(cudaErrorInvalidValue);
+  if (path_for(w2) == kPathNone) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return launch<double>(keys, vals, nullptr, out_key, out_val, out_count,
                         slots, w2, scratch, static_cast<cudaStream_t>(stream));
 }
@@ -1011,14 +1315,16 @@ int esc_tail_flat_f64(const int* keys, const double* vals, int* out_key,
 int esc_tail_flat_f32(const int* keys, const float* vals, int* out_key,
                       float* out_val, int* out_count, long long slots,
                       int w2, void* scratch, void* stream) {
-  if (pad_w2(w2) != w2) return static_cast<int>(cudaErrorInvalidValue);
+  if (path_for(w2) == kPathNone) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return launch<float>(keys, vals, nullptr, out_key, out_val, out_count,
                        slots, w2, scratch, static_cast<cudaStream_t>(stream));
 }
 
-// The slab form: keys/vals [rows, w], row_len int32[rows]; w a power of
-// two in 2..65536, or any w from 3 to 8192, padded to the next power of
-// two in registers.
+// The slab form: keys/vals [rows, w], row_len int32[rows]; any w from 2:
+// up to 8192 padded to the next power of two in registers, wider on the
+// wide path.
 int esc_tail_f64(const int* keys, const double* vals, const int* row_len,
                  int* out_key, double* out_val, int* out_count,
                  long long slots, int w, void* scratch, void* stream) {

@@ -47,12 +47,13 @@ batch as one ``[nchunks * rb, W]`` slab):
   ``esc_tail_flat`` on the flat pre slabs, the slab form ``esc_tail``
   with the plan's ``row_len`` on fill and gather slabs) sorts each row's
   W slots by column, sums equal columns and left-packs the survivors;
-* any other W up to 8192 (the 1.5x grid's classes, never a pre class) on
-  CUDA: the slab kernel, each row padded in registers to the next power
-  of two; their sums are added in the kernel's network order, which is
-  within rounding of the JAX package's, not bit for bit;
-* the rest (``esc_tail="off"``, W past 8192 off the powers of two, and
-  the other widths on CPU tensors, which so keep the JAX package's bits):
+* on CUDA, every other W too: up to 8192 (the 1.5x grid's classes,
+  never a pre class) each row padded in registers to the next power of
+  two, wider on the kernel's wide path (pieces of 8192 slots, then merge
+  rounds); their sums are added in the kernel's order, which is within
+  rounding of the JAX package's, not bit for bit;
+* the rest (``esc_tail="off"``, and on CPU tensors the widths off the
+  powers of two and past 65536, which so keep the JAX package's bits):
   the sort tail in torch ops, the port of the JAX package's XLA tail
   (``_chunk_tail``).
 
@@ -221,6 +222,12 @@ class BucketPlan:
     # of the kernel's, those of classes whose W is not a power of two
     # (padded in registers), summed over this plan's runs
     tail_padded_slots: int = 0
+    # of the kernel's, those that one run sends to its wide path (W past
+    # 8192), set by each run; and of those the slots that it reads, the
+    # products of slab classes (their rows' counts) and every slot of flat
+    # ones
+    tail_wide_slots: int = 0
+    tail_wide_live_slots: int = 0
     # the legacy-replan decision (pipeline.prepare_bucketed_state): this
     # plan replaced a discarded planned plan; the demoted share of that
     # judged plan (None where no plan was judged); its demoted classes
@@ -233,7 +240,9 @@ class BucketPlan:
         ``frontend`` names the frontend each class runs.  The port adds
         the replan decision: ``replanned``, ``replan_share`` (compared
         with ``_REPLAN_SHARE``) and ``demoted_classes``; and
-        ``padded_tail_slots`` (``tail_padded_slots``)."""
+        ``padded_tail_slots`` (``tail_padded_slots``),
+        ``wide_tail_slots`` (``tail_wide_slots``) and
+        ``wide_tail_live_slots`` (``tail_wide_live_slots``)."""
         area = sum(c.W * c.rb * c.nchunks for c in self.classes)
         return {
             "engine": "bucketed",
@@ -246,6 +255,8 @@ class BucketPlan:
                              else round(self.replan_share, 3)),
             "demoted_classes": self.demoted_classes,
             "padded_tail_slots": self.tail_padded_slots,
+            "wide_tail_slots": self.tail_wide_slots,
+            "wide_tail_live_slots": self.tail_wide_live_slots,
             "classes": [
                 {"W": c.W, "chunks": c.nchunks, "rows_per_chunk": c.rb,
                  "rows": int((c.rows_g >= 0).sum()),
@@ -1491,14 +1502,13 @@ def tail_route(W: int, route: str, device_type: str) -> str:
     """The tail that a class of width W takes: ``"direct"`` for W = 1;
     ``"kernel"`` where ``route`` is "kernel" and the kernel takes W (a
     power of two up to 65536 on any device, CPU tensors running its plain
-    version; on CUDA also any other W up to 8192, padded in registers);
-    else ``"sort"``."""
+    version; on CUDA every W up to the int32 slab bound: padded in
+    registers up to 8192, the wide path past it); else ``"sort"``."""
     if W == 1:
         return "direct"
     if route != "kernel":
         return "sort"
-    if esc_tail_mod.supported_w2(W) or (device_type == "cuda"
-                                        and esc_tail_mod.supported_w(W)):
+    if device_type == "cuda" or esc_tail_mod.supported_w2(W):
         return "kernel"
     return "sort"
 
@@ -1513,11 +1523,13 @@ def _flat_tail(K, prod, valid, *, W: int, rows: int, seg_passes: int,
     L = rows * W
     tail = tail_route(W, route, K.device.type)
     counts[tail] += L
+    if tail == "kernel":
+        with span(_TAIL_SPANS[tail], W=W, w2=W,
+                  path=esc_tail_mod.path_for(W)):
+            return esc_tail_mod.esc_tail_flat(K, prod, w2=W)
     with span(_TAIL_SPANS[tail], W=W):
         if tail == "direct":
             return K, prod, valid.to(torch.int32)
-        if tail == "kernel":
-            return esc_tail_mod.esc_tail_flat(K, prod, w2=W)
         oC, oV, nnz_row = _chunk_tail(K.view(rows, W), prod.view(rows, W),
                                       seg_passes=seg_passes)
         return oC.reshape(L), oV.reshape(L), nnz_row
@@ -1537,7 +1549,8 @@ def slab_tail(K, prod, row_len, *, W: int, seg_passes: int, route: str,
     counts[tail] += L
     if tail == "kernel":
         w2 = esc_tail_mod.pad_w2(W)
-        with span(_TAIL_SPANS[tail], W=W, w2=w2):
+        with span(_TAIL_SPANS[tail], W=W, w2=w2,
+                  path=esc_tail_mod.path_for(w2)):
             oC, oV, nnz_row = esc_tail_mod.esc_tail(K, prod, row_len, w2=w2)
             return oC.reshape(L), oV.reshape(L), nnz_row
     with span(_TAIL_SPANS[tail], W=W):
@@ -1589,15 +1602,25 @@ def bucketed_main(plan: BucketPlan, a_val, b_col, b_val, pairs2d=None, *,
     ``[(cols [L], vals [L], nnz_row [rows])]``, left-packed per row.
     ``pairs2d`` is the planar fill stream (needed when a class fills).
     Adds the slots of the classes that the kernel padded to
-    ``plan.tail_padded_slots``."""
+    ``plan.tail_padded_slots``, and sets ``plan.tail_wide_slots`` to the
+    slots that took its wide path and ``plan.tail_wide_live_slots`` to
+    those of them that it read."""
     slabs = []
+    wide = live = 0
     for c, d in zip(plan.classes, plan.dev):
         slabs.append(class_tail(
             c, class_front(c, d, a_val, b_col, b_val, pairs2d),
             route=route, counts=plan.tail_slots))
-        if c.W & (c.W - 1) and tail_route(c.W, route,
-                                          a_val.device.type) == "kernel":
-            plan.tail_padded_slots += c.nchunks * c.rb * c.W
+        if tail_route(c.W, route, a_val.device.type) == "kernel":
+            slots = c.nchunks * c.rb * c.W
+            if c.W & (c.W - 1):
+                plan.tail_padded_slots += slots
+            if esc_tail_mod.path_for(esc_tail_mod.pad_w2(c.W)) == "wide":
+                wide += slots
+                # a slab row's slots past its count are never loaded
+                live += slots if c.pre else int(c.ent_len.sum())
+    plan.tail_wide_slots = wide
+    plan.tail_wide_live_slots = live
     return slabs
 
 

@@ -5,7 +5,7 @@ count).
 
 Input: ``keys`` int32[slots] (2^31-1 marks an empty slot) and ``vals``
 [slots] in the port's value type (float64, or float32), with
-``slots % w2 == 0`` and ``w2`` a power of two in 2..65536.  Output, per
+``slots % w2 == 0`` and ``w2`` a power of two in 2..2^30.  Output, per
 aligned segment of ``w2`` slots: the distinct keys ascending with their
 summed values, left-packed, then 2^31-1 keys with value 0; plus each
 segment's output count.  The TPU kernel carried f64 values as double-f32
@@ -16,10 +16,18 @@ The slab form :func:`esc_tail` is the same function on ``[rows, W]``
 with one addition: slot j of row r counts as empty (key 2^31-1, value 0)
 when ``j >= row_len[r]``, before the sort.  The fill frontend's slabs
 hold undefined words past each row's products, so the count, not the
-keys, says where a row ends.  W is ``w2`` or, up to 8192, any width
-above ``w2 / 2`` (the 1.5x width grid's classes): each row is then
-sorted as a segment of ``w2`` whose slots W..w2-1 are empty, and comes
-back at stride W (a row keeps at most W survivors).
+keys, says where a row ends.  W is ``w2`` or any width above ``w2 / 2``
+(the 1.5x width grid's classes): up to 8192 each row is then sorted as a
+segment of ``w2`` whose slots W..w2-1 are empty, and comes back at stride
+W (a row keeps at most W survivors).
+
+Rows wider than 8192, in either form, take the kernel's wide path
+(:func:`path_for`): the tile path sorts, sums and packs each piece of
+8192 slots (the last piece of a row shorter where 8192 does not divide
+W), and rounds of pairwise merges join the packed runs, a key held by
+both runs of a merge summed as left + right.  So the sums of a wide row
+are added in that tree's order, which the plain version follows, and
+not in one network's.
 
 :func:`esc_tail_flat` and :func:`esc_tail` launch the CUDA kernel
 ``csrc/esc_tail.cu`` for CUDA tensors and take their plain versions only
@@ -37,15 +45,19 @@ from .. import _build
 from ..errors import DeviceError
 
 I32_MAX = 2**31 - 1
-_MAX_W2 = 1 << 16
+_JAX_MAX_W2 = 1 << 16          # the JAX package's widest flat segment
+_MAX_WARP_W2 = 1 << 8          # the warp path's widest segment
 _MAX_PADDED_W = 1 << 13        # the tile path's widest segment
-_PATHS = ("warp", "tile", "global")
+_PIECE = _MAX_PADDED_W         # the wide path's pieces
+_MAX_FLAT_W2 = 1 << 30         # the widest flat segment (int32 slots)
 
 
 def supported_w2(w: int) -> bool:
-    """True when the flat tail takes segments of width ``w`` (a power of
-    two in 2..65536)."""
-    return 2 <= w <= _MAX_W2 and (w & (w - 1)) == 0
+    """True when ``w`` is a flat segment width that the JAX package's
+    tail takes too (a power of two in 2..65536): the widths that every
+    device, CPU tensors included, sends to the kernel or its plain
+    version."""
+    return 2 <= w <= _JAX_MAX_W2 and (w & (w - 1)) == 0
 
 
 def pad_w2(w: int) -> int:
@@ -54,30 +66,23 @@ def pad_w2(w: int) -> int:
     return 1 << max(0, int(w) - 1).bit_length()
 
 
-def supported_w(w: int) -> bool:
-    """True when the slab tail takes rows of ``w`` slots: a width the flat
-    tail takes, or any width from 3 to 8192, padded to :func:`pad_w2` (the
-    kernel's warp and tile paths)."""
-    return supported_w2(w) or 2 < w <= _MAX_PADDED_W
-
-
-def kernel_path(w2: int) -> str:
-    """The path that the kernel takes for segments of width ``w2``, as
-    ``csrc/esc_tail.cu``'s dispatch decides it (the C entry
-    ``esc_tail_path``; builds the library, so it needs nvcc):
-    ``"warp"`` (a tile in each warp's registers), ``"tile"`` (a block's
-    shared memory) or ``"global"`` (scratch in device memory)."""
-    fn = _build.load("esc_tail").esc_tail_path
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-    path = fn(w2)
-    if path < 0:
-        raise ValueError(f"w2={w2}: no kernel path")
-    return _PATHS[path]
+def path_for(w2: int) -> str:
+    """The path of ``csrc/esc_tail.cu`` that segments of width ``w2`` (a
+    power of two) and rows of ``w2 / 2 < W <= w2`` slots take, the one
+    table of the spans, the counters and the smoke (the kernel's dispatch
+    splits at its ``kWarpMaxW2`` and ``kSmemMaxW2``, which a CUDA test
+    holds to this): ``"warp"`` (w2 <= 256, a tile in each warp's
+    registers), ``"tile"`` (to 8192, a block's shared memory) or
+    ``"wide"`` (pieces on the tile path, then merge rounds in device
+    memory)."""
+    if w2 <= _MAX_WARP_W2:
+        return "warp"
+    return "tile" if w2 <= _MAX_PADDED_W else "wide"
 
 
 def _tail_plain(K: torch.Tensor, V: torch.Tensor):
     """The tail on ``[segments, w2]`` in torch ops, step for step the
-    kernel's (each of its three paths): the same bitonic network (ties
+    kernel's warp and tile paths: the same bitonic network (ties
     never swap), then the same Hillis-Steele passes, so values are added
     in the kernel's order (and the TPU kernel's).  Returns (packed keys,
     packed values, counts)."""
@@ -122,23 +127,69 @@ def _tail_plain(K: torch.Tensor, V: torch.Tensor):
     return out_k, out_v, counts
 
 
+def _wide_plain(K: torch.Tensor, V: torch.Tensor):
+    """The wide path on ``[rows, W]`` (W > 8192; slots to leave out
+    already empty) in torch ops, in the kernel's order of additions: each
+    piece of 8192 slots (the last one padded with empty slots) through
+    :func:`_tail_plain`, then pairwise merges of the packed runs, run 2q
+    with run 2q + 1 (a run without a partner merges with an empty one),
+    a key of both runs summed as left + right.  Returns (packed keys
+    [rows, W], packed values [rows, W], counts)."""
+    rows, W = K.shape
+    n = -(-W // _PIECE)
+    pad = n * _PIECE - W
+    if pad:
+        K = torch.cat([K, K.new_full((rows, pad), I32_MAX)], dim=1)
+        V = torch.cat([V, V.new_zeros((rows, pad))], dim=1)
+    oK, oV, counts = _tail_plain(K.reshape(rows * n, _PIECE),
+                                 V.reshape(rows * n, _PIECE))
+    oK, oV, run = oK.view(rows, n, _PIECE), oV.view(rows, n, _PIECE), _PIECE
+    while n > 1:
+        if n % 2:
+            oK = torch.cat([oK, oK.new_full((rows, 1, run), I32_MAX)], dim=1)
+            oV = torch.cat([oV, oV.new_zeros((rows, 1, run))], dim=1)
+            n += 1
+        n, run = n // 2, run * 2
+        # run 2q then run 2q + 1: a stable sort puts a left key before its
+        # right twin
+        sK, order = torch.sort(oK.reshape(rows, n, run), dim=-1, stable=True)
+        sV = torch.gather(oV.reshape(rows, n, run), -1, order)
+        twin = (sK[..., 1:] == sK[..., :-1]) & (sK[..., :-1] < I32_MAX)
+        sV = torch.cat([torch.where(twin, sV[..., :-1] + sV[..., 1:],
+                                    sV[..., :-1]), sV[..., -1:]], dim=-1)
+        keep = sK < I32_MAX
+        keep[..., 1:] &= ~twin
+        first = torch.sort((~keep).to(torch.int8), dim=-1, stable=True)[1]
+        counts = keep.sum(dim=-1, dtype=torch.int32)
+        live = (torch.arange(run, device=K.device)
+                < counts[..., None].to(torch.int64))
+        oK = torch.where(live, torch.gather(sK, -1, first), I32_MAX)
+        oV = torch.where(live, torch.gather(sV, -1, first),
+                         torch.zeros((), dtype=V.dtype, device=V.device))
+    return (oK.reshape(rows, -1)[:, :W].contiguous(),
+            oV.reshape(rows, -1)[:, :W].contiguous(), counts.reshape(rows))
+
+
 def esc_tail_flat_plain(keys: torch.Tensor, vals: torch.Tensor, *,
                         w2: int):
     """Plain PyTorch version of the flat tail (same contract as
     :func:`esc_tail_flat`, same order of additions)."""
     S = keys.shape[0] // w2
+    if w2 > _PIECE:
+        oK, oV, cnt = _wide_plain(keys.view(S, w2), vals.view(S, w2))
+        return oK.view(-1), oV.view(-1), cnt
     return _tail_plain(keys.view(S, w2), vals.view(S, w2))
 
 
 def _check(keys: torch.Tensor, vals: torch.Tensor, w2: int,
            w: Optional[int] = None) -> None:
     w = w2 if w is None else w
-    if not supported_w2(w2):
+    if w2 < 2 or w2 & (w2 - 1) or (w == w2 and w2 > _MAX_FLAT_W2):
         raise ValueError(f"w2={w2}: segments must be a power of two in "
-                         f"2..{_MAX_W2}")
-    if w != w2 and not (supported_w(w) and pad_w2(w) == w2):
+                         f"2..{_MAX_FLAT_W2}")
+    if w != w2 and not (2 <= w <= I32_MAX and pad_w2(w) == w2):
         raise ValueError(f"rows of {w} slots do not pad to w2={w2} (w2 / 2 "
-                         f"< W <= w2, and W <= {_MAX_PADDED_W} below w2)")
+                         f"< W <= w2, W <= {I32_MAX})")
     if keys.dtype != torch.int32 or keys.dim() != 1:
         raise ValueError("keys must be a 1-D int32 tensor")
     if vals.dtype not in (torch.float64, torch.float32):
@@ -213,10 +264,15 @@ def esc_tail_plain(keys: torch.Tensor, vals: torch.Tensor,
     """Plain PyTorch version of :func:`esc_tail` (same contract, same
     order of additions): pad each row of W slots to ``w2`` with empty
     slots (2^31-1, 0), mask the slots past each row's count, run the flat
-    tail's steps and cut each row back to W."""
+    tail's steps and cut each row back to W; rows wider than 8192 take
+    the wide path's steps."""
     rows, W = keys.shape
     live = (torch.arange(W, device=keys.device)[None, :]
             < row_len.to(torch.int64)[:, None])
+    if W > _MAX_PADDED_W:
+        return _wide_plain(torch.where(live, keys, I32_MAX),
+                           torch.where(live, vals, torch.zeros(
+                               (), dtype=vals.dtype, device=vals.device)))
     K = torch.full((rows, w2), I32_MAX, dtype=keys.dtype,
                    device=keys.device)
     V = torch.zeros((rows, w2), dtype=vals.dtype, device=vals.device)
@@ -231,9 +287,10 @@ def esc_tail_plain(keys: torch.Tensor, vals: torch.Tensor,
 def esc_tail(keys: torch.Tensor, vals: torch.Tensor, row_len: torch.Tensor,
              *, w2: int):
     """Tail over ``[rows, W]`` slabs with per-row counts, ``w2 / 2 < W <=
-    w2`` (:func:`supported_w`); returns (packed keys int32 [rows, W],
-    packed values [rows, W], per-row output counts int32 [rows]).  Slots
-    at or past ``row_len[r]`` are empty whatever they hold.
+    w2`` (``w2`` is :func:`pad_w2` of W, any W up to 2^31-1); returns
+    (packed keys int32 [rows, W], packed values [rows, W], per-row output
+    counts int32 [rows]).  Slots at or past ``row_len[r]`` are empty
+    whatever they hold.
 
     CUDA tensors go through the kernel (``csrc/esc_tail.cu``) on the
     current stream, and each launch adds one to ``esc_tail.launches``;
@@ -263,7 +320,7 @@ def esc_tail(keys: torch.Tensor, vals: torch.Tensor, row_len: torch.Tensor,
     if rows == 0:
         return out_k, out_v, counts
     lib, fn = _kernel_fn(vals.dtype, slab=True)
-    nbytes = lib.esc_tail_flat_scratch_bytes(rows * w2, w2,
+    nbytes = lib.esc_tail_flat_scratch_bytes(keys.numel(), W,
                                              vals.element_size())
     scratch = (torch.empty(nbytes, dtype=torch.uint8, device=keys.device)
                if nbytes else None)

@@ -8,9 +8,10 @@ driver's (``ns_per_product`` is a time; the JAX driver's
 ``floor_ns_per_product`` is a TPU figure the port does not print; the
 port's replan counters, ``replanned``, ``replan_share`` and
 ``demoted_classes``, have no JAX key and are checked in
-``test_torch_trace.py``; so has its ``padded_tail_slots``, checked in
-``test_torch_padded_tail.py``).  Under ``--mode auto`` the two compare only
-where both chose the same engine.
+``test_torch_trace.py``; so have its ``padded_tail_slots``, checked in
+``test_torch_padded_tail.py``, and ``wide_tail_slots`` and
+``wide_tail_live_slots``, checked in ``test_torch_wide_tail.py``).  Under
+``--mode auto`` the two compare only where both chose the same engine.
 """
 
 import json
@@ -31,7 +32,7 @@ MATRICES = {
 }
 TIMED = ("ns_per_product", "floor_ns_per_product")
 PORT_ONLY = ("replanned", "replan_share", "demoted_classes",
-             "padded_tail_slots")
+             "padded_tail_slots", "wide_tail_slots", "wide_tail_live_slots")
 
 
 @pytest.fixture(scope="module")

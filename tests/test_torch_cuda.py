@@ -61,7 +61,8 @@ def tail_inputs(w2: int, nseg: int, seed: int):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("w2", [2, 4, 8, 16, 32, 64, 128, 256, 512, 1024,
-                                2048, 4096, 8192, 32768, 65536])
+                                2048, 4096, 8192, 16384, 32768, 65536,
+                                131072])
 def test_kernel_matches_plain(cuda, w2, dtype):
     nseg = max(3, (1 << 17) // w2)
     k, v = tail_inputs(w2, nseg, seed=w2)
@@ -278,15 +279,19 @@ def test_slab_tail_matches_plain(cuda, w2, dtype):
 @pytest.mark.parametrize("w2,path", [(2, "warp"), (64, "warp"),
                                      (256, "warp"), (512, "tile"),
                                      (1024, "tile"), (4096, "tile"),
-                                     (8192, "tile"), (16384, "global"),
-                                     (65536, "global")])
+                                     (8192, "tile"), (16384, "wide"),
+                                     (65536, "wide"), (131072, "wide")])
 def test_tail_kernel_path_by_width(cuda, w2, path):
-    """``esc_tail.kernel_path`` reports the path that ``csrc/esc_tail.cu``
-    dispatches to (its C entry ``esc_tail_path``), and refuses a width
-    that no path serves."""
-    assert et.kernel_path(w2) == path
-    with pytest.raises(ValueError):
-        et.kernel_path(w2 * 3)
+    """``csrc/esc_tail.cu`` dispatches segments of w2 slots to the path
+    that ``esc_tail.path_for`` names (the kernel's C entry
+    ``esc_tail_path``, which launches nothing), and serves no width that
+    is not a power of two."""
+    import ctypes
+    from mh_spgemm_torch import _build
+    fn = _build.load("esc_tail").esc_tail_path
+    fn.argtypes, fn.restype = [ctypes.c_longlong], ctypes.c_int
+    assert ("warp", "tile", "wide")[fn(w2)] == path == et.path_for(w2)
+    assert fn(w2 * 3) == -1
 
 
 def tile_rows(w2: int) -> int:
@@ -424,7 +429,8 @@ def check_both_tails(keys, vals, row_len, w2: int, dtype, offset: int = 0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("w2,rows", [(8, 5), (64, 3), (2, 3), (128, 7),
-                                     (512, 3), (1024, 3), (8192, 3)])
+                                     (512, 3), (1024, 3), (8192, 3),
+                                     (32768, 3)])
 def test_tails_partial_tile(cuda, w2, rows, dtype):
     """Slot counts that are not a multiple of the kernel's tile (256
     slots a warp on the warp path, max(w2, 2048) a block on the tile
@@ -442,7 +448,7 @@ def test_tails_partial_tile(cuda, w2, rows, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("w2", [2, 32, 256, 512, 1024, 8192])
+@pytest.mark.parametrize("w2", [2, 32, 256, 512, 1024, 8192, 16384])
 def test_tails_equal_keys_and_empty_tiles(cuda, w2, dtype):
     """One whole tile (256 slots on the warp path, max(w2, 2048) on the
     tile path) whose keys are all equal, then an all-empty tile (every
@@ -461,7 +467,7 @@ def test_tails_equal_keys_and_empty_tiles(cuda, w2, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("w2", [16, 256, 512, 1024, 8192])
+@pytest.mark.parametrize("w2", [16, 256, 512, 1024, 8192, 16384])
 def test_tails_unaligned_planes(cuda, w2, dtype):
     """Planes that do not start on a 16-byte boundary (contiguous views at
     an odd offset) take the slot-by-slot loads and stores of the warp
@@ -483,6 +489,102 @@ def test_tails_unaligned_planes(cuda, w2, dtype):
     row_len[0], row_len[1] = w2, 0
     svals = rng.standard_normal((rows, w2))
     check_both_tails(skeys, svals, row_len, w2, dtype, offset=1)
+
+
+WIDE_WS = [8193, 10001, 12288, 16384, 24576, 98304, 196608]
+
+
+def wide_rows(W: int, keyspan: int, seed: int):
+    """Rows of W slots: row 0 full, row 1 empty, row 2 full of one key,
+    row 3 full of distinct keys in descending order, row 4 full of keys
+    that each come twice, W / 2 apart (so in different pieces), the rest
+    with random counts; keys drawn from ``keyspan`` columns, NaN values
+    past each count."""
+    rng = np.random.default_rng(seed)
+    rows = max(6, (1 << 19) // W)
+    keys = rng.integers(0, keyspan, (rows, W)).astype(np.int32)
+    row_len = rng.integers(0, W + 1, rows).astype(np.int32)
+    row_len[[0, 2, 3, 4]], row_len[1] = W, 0
+    keys[2] = 7
+    keys[3] = np.arange(W)[::-1]
+    keys[4] = np.arange(W) % (W // 2)
+    vals = rng.standard_normal((rows, W))
+    vals[np.arange(W)[None, :] >= row_len[:, None]] = np.nan
+    return keys, vals, row_len
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("keyspan", ["dense", "sparse"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("W", WIDE_WS)
+def test_wide_slab_tail_matches_plain(cuda, W, dtype, keyspan, offset):
+    """Rows wider than 8192 on the wide path (pieces on the tile path, then
+    merge rounds): bit for bit the plain version, and the same bits again
+    on a second run; keys drawn from W / 4 columns (most keys of a piece
+    meet a twin in the merges) or from 4W (few do), 16-byte copies where
+    W is a multiple of 4 and the planes are aligned, slot by slot
+    otherwise."""
+    span = max(2, W // 4) if keyspan == "dense" else 4 * W
+    keys, vals, row_len = wide_rows(W, span, seed=W + len(keyspan))
+    k, v, rl = slab_on_card(keys, vals, row_len, dtype, offset)
+    w2 = et.pad_w2(W)
+    before = et.esc_tail.launches
+    out = et.esc_tail(k, v, rl, w2=w2)
+    again = et.esc_tail(k, v, rl, w2=w2)
+    torch.cuda.synchronize()
+    assert et.esc_tail.launches == before + 2
+    for a, b, c in zip(out, again, et.esc_tail_plain(k, v, rl, w2=w2)):
+        assert torch.equal(a, c) and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_wide_path_uses_many_blocks_a_row(cuda):
+    """A row of 786,432 slots (the widest class of the g500_s15_ef16
+    benchmark's plan) is 96 pieces, a block each, and every merge round
+    splits its pairs into tiles of 2048 positions, a block each: the
+    scratch holds the second planes, 96 piece counts, 48 run counts and
+    the most tiles of a round, 512 (2 pairs of 256 tiles when 3 runs
+    merge).  The kernel equals its plain version there."""
+    lib = et._kernel_fn(torch.float64, slab=True)[0]
+    W = 786432
+    nbytes = lib.esc_tail_flat_scratch_bytes(W, W, 8)
+    assert nbytes == W * 12 + 4 * (96 + 48 + 512)
+    keys, vals, row_len = wide_rows(W, W // 3, seed=5)
+    k, v, rl = slab_on_card(keys[:1], vals[:1], row_len[:1], torch.float64,
+                            0)
+    out = et.esc_tail(k, v, rl, w2=et.pad_w2(W))
+    for a, b in zip(out, et.esc_tail_plain(k, v, rl, w2=et.pad_w2(W))):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bucketed_kronecker_takes_no_sort_tail(cuda):
+    """A scale-11 Graph500 Kronecker matrix (the g500_s15_ef16 benchmark's
+    generator) squared by the bucketed engine under the default config:
+    its classes past 8192 take the wide path, no slot the sort tail, it
+    reads each slab row's products and every slot of a flat class, and C
+    is the oracle's, cold and warm."""
+    from spgemm_bench import gen as sg
+    M = sg.rmat(11, 16, 0.57, 0.19, 0.19, permute=True, symmetric=True,
+                rng=np.random.default_rng(11))
+    A = CSR(M=M.M, N=M.N, ptr=M.ptr, col=M.col, val=M.val)
+    ref = oracle_spgemm(A, A)
+    cfg = SpGEMMConfig()
+    C, st = spgemm_bucketed(A, A, cfg, device=cuda)
+    assert C.host().equals(ref, tol=1e-9)
+    C, st = spgemm_bucketed(A, A, cfg, state=st)
+    assert C.host().equals(ref, tol=1e-9)
+    assert st.plan.tail_slots["sort"] == 0
+    wide_cls = [c for c in st.plan.classes if c.W > 8192]
+    wide = sum(c.W * c.rb * c.nchunks for c in wide_cls)
+    assert wide > 0 and st.plan.stats()["wide_tail_slots"] == wide
+    prod = np.zeros(A.M + 1, np.int64)     # products a row, a last 0
+    np.add.at(prod, np.repeat(np.arange(A.M), np.diff(A.ptr)),
+              np.diff(A.ptr)[A.col])
+    live = sum(c.W * c.rb * c.nchunks if c.pre else int(prod[c.rows_g].sum())
+               for c in wide_cls)
+    assert st.plan.stats()["wide_tail_live_slots"] == live
 
 
 @pytest.mark.cuda

@@ -131,8 +131,8 @@ def test_flat_tail_cancellation():
 
 
 def test_flat_tail_wide_against_numpy():
-    """w2 = 16384 (the kernel's global-scratch width range) against a
-    numpy reference only: interpreter mode is slow at this width."""
+    """w2 = 16384 (the kernel's wide path) against a numpy reference
+    only: interpreter mode is slow at this width."""
     w2 = 16384
     keys, vals = tail_inputs(w2, 3, seed=7)
     rK, rV = numpy_tail(keys, vals, w2)

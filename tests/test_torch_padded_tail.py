@@ -94,7 +94,7 @@ def test_padded_plain_is_the_pow2_call_on_a_padded_slab(W, dtype, mode):
 
 @pytest.mark.parametrize("W,w2,ok", [
     (3, 4, True), (6, 8, True), (192, 256, True), (6144, 8192, True),
-    (8191, 8192, True), (256, 256, True), (12288, 16384, False),
+    (8191, 8192, True), (256, 256, True), (12288, 16384, True),
     (128, 256, False), (300, 256, False), (5, 7, False)])
 def test_slab_wrapper_takes_rows_that_pad_to_w2(W, w2, ok):
     keys = torch.zeros((2, W), dtype=torch.int32)
@@ -114,12 +114,24 @@ def test_slab_wrapper_takes_rows_that_pad_to_w2(W, w2, ok):
     (1, "kernel", "cuda", "direct"), (1, "sort", "cpu", "direct"),
     (2, "kernel", "cpu", "kernel"), (256, "kernel", "cuda", "kernel"),
     (256, "kernel", "cpu", "kernel"), (256, "sort", "cuda", "sort"),
-    (65536, "kernel", "cuda", "kernel"), (131072, "kernel", "cuda", "sort"),
+    (65536, "kernel", "cuda", "kernel"), (131072, "kernel", "cuda", "kernel"),
     (3, "kernel", "cuda", "kernel"), (192, "kernel", "cuda", "kernel"),
     (384, "kernel", "cuda", "kernel"), (6144, "kernel", "cuda", "kernel"),
     (384, "kernel", "cpu", "sort"), (384, "sort", "cuda", "sort"),
-    (12288, "kernel", "cuda", "sort"), (9000, "kernel", "cuda", "sort")])
+    (12288, "kernel", "cuda", "kernel"), (9000, "kernel", "cuda", "kernel"),
+    (8192, "kernel", "cuda", "kernel"), (8193, "kernel", "cuda", "kernel"),
+    (16384, "kernel", "cuda", "kernel"), (98304, "kernel", "cuda", "kernel"),
+    (786432, "kernel", "cuda", "kernel"),
+    (1 << 20, "kernel", "cuda", "kernel"), (I32_MAX, "kernel", "cuda", "kernel"),
+    (12288, "sort", "cuda", "sort"), (786432, "sort", "cuda", "sort"),
+    (12288, "kernel", "cpu", "sort"), (16384, "kernel", "cpu", "kernel"),
+    (65536, "kernel", "cpu", "kernel"), (131072, "kernel", "cpu", "sort"),
+    (786432, "kernel", "cpu", "sort")])
 def test_tail_route(W, route, device, want):
+    """On CUDA every width but 1 takes the kernel up to the int32 slab
+    bound (padded to 8192, its wide path past it), unless the route is
+    "sort"; CPU tensors keep the sort tail off the JAX package's widths
+    (powers of two to 65536)."""
     assert tbk.tail_route(W, route, device) == want
 
 

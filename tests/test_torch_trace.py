@@ -178,6 +178,37 @@ def test_tail_and_front_spans_name_the_route(planned):
         == routes
 
 
+@pytest.mark.parametrize("pre", [True, False])
+def test_tail_kernel_span_names_the_path(pre, monkeypatch):
+    """Each ``tail.kernel`` span carries ``path=``, the kernel's path for
+    the class's segment width (``esc_tail.path_for``): ``warp``, ``tile``
+    or ``wide``; flat (pre) and slab classes alike."""
+    from mh_spgemm_torch.ops import esc_tail as tet
+    seen = []
+
+    def record(name, **args):
+        seen.append((name, args))
+        return timing._NO_SPAN
+
+    monkeypatch.setattr(tbk, "span", record)
+    W, rows = 16384, 2
+    K = torch.randint(0, 4000, (rows, W), dtype=torch.int32)
+    V = torch.randn(rows, W, dtype=torch.float64)
+    counts = {"direct": 0, "kernel": 0, "sort": 0}
+    for w in (W, 512, 128):
+        k, v = K[:, :w].contiguous(), V[:, :w].contiguous()
+        if pre:
+            tbk._flat_tail(k.reshape(-1), v.reshape(-1), None, W=w,
+                           rows=rows, seg_passes=14, route="kernel",
+                           counts=counts)
+        else:
+            tbk.slab_tail(k, v, torch.full((rows,), w, dtype=torch.int32),
+                          W=w, seg_passes=14, route="kernel", counts=counts)
+    paths = [a["path"] for n, a in seen if n == "tail.kernel"]
+    assert paths == ["wide", "tile", "warp"]
+    assert paths == [tet.path_for(w) for w in (W, 512, 128)]
+
+
 def test_spgemm_host_root_holds_route_and_readback():
     A = gen.banded(200, band=9, nnz_per_row=5, seed=3)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
