@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit and the torch version.
-2. Builds the five CUDA sources (``mh_spgemm_torch/csrc/esc_tail.cu``,
-   ``pair_matmul.cu``, ``ragged_fill.cu``, ``planned.cu`` and
-   ``remote_fetch.cu``) with nvcc for sm_90a into ``build/``, one nvcc per
-   source, started together; prints the build times and, for each
-   kernel, the registers, static shared memory, stack and spills ptxas
-   reports (also in each kernel's ``ptxas`` entry of the kernels line).
+2. Builds the six CUDA sources (``mh_spgemm_torch/csrc/esc_tail.cu``,
+   ``pair_matmul.cu``, ``ragged_fill.cu``, ``planned.cu``,
+   ``remote_fetch.cu`` and ``gather_front.cu``) with nvcc for sm_90a
+   into ``build/``, one nvcc per source, started together; prints the
+   build times and, for each kernel, the registers, static shared
+   memory, stack and spills ptxas reports (also in each kernel's
+   ``ptxas`` entry of the kernels line).
    Then ``cuobjdump -sass`` of the built ``pair_matmul`` library: per
    pair kernel the count of DMMA, HMMA ... TF32, LDGSTS and UTMALDG
    instructions, beside the registers, dynamic shared memory, local
@@ -69,6 +70,17 @@
    process's own shards; given buffers) against the plain version's
    subset and the whole exchange's slice (exact), and
    ``exchange_planes`` round-tripping 3 planes of cap 300.
+   Then the gather frontend's phase: the gather classes of the
+   benchmark's two configurations as the pipeline plans them on the card
+   (``GATHER_RUNS``: er_s17_ef16's W = 192, 256, 384, 512 and 768,
+   g500_s15_ef16's W = 393216 and 786432), ``gather_front`` against
+   ``front_gather_plain`` (keys, the products' bits and the row counts
+   equal), each class timed beside the plain version, one
+   ``index_select`` of B's columns and values at the covered slots'
+   sources and the byte bound (the ``gather_front`` lines and kernel
+   entry: the phase's own launches, nonzero, are its ``timed_launches``;
+   its ``launches`` are those of the bucketed, masked, distributed and
+   multi-process phases below, each counted from 0 around its runs).
 4. Bucketed phase: ``spgemm_host`` and ``spgemm_bucketed`` (one cold
    call, then warm calls reusing the state) under the default config
    (``planned="auto"``: the planned frontend on the card) on the
@@ -77,7 +89,8 @@
    planned classes, cage12 must be replanned (the legacy-replan rule);
    the launch counts, set to 0 before this phase, must have grown for
    ``esc_tail_flat``, ``ragged_fill`` (cage12's windowed extraction),
-   ``pgather`` and ``proute``.  Prints per matrix the engine
+   ``pgather``, ``proute`` and ``gather_front`` (cage12's replanned gather
+   class).  Prints per matrix the engine
    ``choose_engine`` picks, the warm ms per SpGEMM (CUDA events), GFLOPS
    = 2 * intprod / ms, nnz(C), the class widths and frontends, the
    planning seconds, whether the plan was replanned, which extraction the
@@ -130,8 +143,10 @@
 7. Masked phase: ``spgemm_masked`` cold, then warm, on scircuit and
    cage12 at full size; C must equal the oracle within 1e-9, and
    ``ragged_fill``, set to 0 before each matrix, must have run for both
-   (scircuit's tile fill, cage12's windowed extraction).  Prints warm
-   ms, GFLOPS, cold ms, the classes by frontend and their tile widths.
+   (scircuit's tile fill, cage12's windowed extraction);
+   ``gather_front``'s launches, set to 0 before each matrix, are read
+   after it.  Prints warm ms, GFLOPS, cold ms, the classes by frontend
+   and their tile widths.
 8. Distributed phase (after the masked phase): ``spgemm_dist`` on D=8
    shards of the one card (``make_row_mesh(8)``; grid2d on 4 x 2) on
    the full-size stand-ins: scircuit under ``replicate``, ``allgather``,
@@ -237,7 +252,7 @@
    on cage12 (bucketed) and pdb1HYS (block-dense): each plan must warm
    from the plan-cache record the first run saved (``plan_cache: hit``)
    and pass its check (the ``suite plan_cache`` line).
-13. Prints ``{"kernels": [...]}`` (all nine kernels), the card's name and
+13. Prints ``{"kernels": [...]}`` (all ten kernels), the card's name and
    power limit, and,
    as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -283,9 +298,16 @@ PADDED_WS = (3, 6, 12, 100, 192, 384, 768, 1536, 3072, 6144, 8191)
 # whose last piece is short
 WIDE_WS = (12288, 40000, 98304, 393216, 786432)
 MATRICES = ("scircuit", "cage12", "webbase-1M")
+# the gather frontend's phase: the benchmark's configurations (name,
+# scale, R-MAT a / b / c, permuted and symmetric); their replanned plans
+# hold gather classes of W = 192, 256, 384, 512, 768 (er_s17_ef16) and
+# 393216, 786432 (g500_s15_ef16)
+GATHER_RUNS = (("er_s17_ef16", 17, (0.25, 0.25, 0.25), False),
+               ("g500_s15_ef16", 15, (0.57, 0.19, 0.19), True))
+GATHER_SEED = 1234567890123
 BD_MATRICES = ("pdb1HYS", "pwtk")
 SOURCES = ("esc_tail", "pair_matmul", "ragged_fill", "planned",
-           "remote_fetch")
+           "remote_fetch", "gather_front")
 PLANNED_MATRICES = ("scircuit", "webbase-1M")   # must run planned classes
 REPLANNED_MATRIX = "cage12"                     # must be replanned
 PLANNED_TIMING = "scircuit"
@@ -646,15 +668,109 @@ def extraction_kind(plan) -> str:
     return "planned" if plan.ext_pf is not None else "gather"
 
 
-def main_path_phase(torch, mt, et, rf, pn, dev):
-    """Drive the main path on every stand-in; the tail kernels' and
-    ragged_fill's launch counts are set to 0 just before and read just
-    after.  Returns (states, oracles, matrices, launches)."""
+def gather_front_phase(torch, mt, bk, gf, dev) -> dict:
+    """The gather frontend's kernel against its plain version on the
+    gather classes of the benchmark's two configurations (``GATHER_RUNS``:
+    the generator and seed of ``spgemm_bench``, planned by the pipeline
+    with the card's modes, so replanned onto the 1.5x grid): K, the
+    products' bits and the row counts equal; then each class timed
+    (CUDA events) beside its plain version, one ``index_select`` of B's
+    columns and values at the covered slots' sources (the same words
+    read) and its byte bound (:func:`gather_bound_ms`).  Returns, per
+    configuration, the sums and the classes' rows; ``timed_launches``,
+    this phase's own launches; and ``max_abs_err``, the largest
+    difference of the compared products."""
+    from spgemm_bench import gen as sg
+    gf.gather_front.launches = 0
+    out, err = {}, 0.0
+    for name, scale, abc, sym in GATHER_RUNS:
+        M = sg.rmat(scale, 16, *abc, permute=sym, symmetric=sym,
+                    rng=np.random.default_rng([GATHER_SEED, 0]))
+        A = mt.CSR(M=M.M, N=M.N, ptr=M.ptr, col=M.col, val=M.val)
+        st = mt.pipeline.prepare_bucketed_state(A, A, mt.SpGEMMConfig(),
+                                                device=dev)
+        plan = st.plan
+        bk.upload_plan(plan, dev)
+        cls = [(c, d) for c, d in zip(plan.classes, plan.dev)
+               if c.frontend == "gather"]
+        check(bool(cls), f"{name}'s plan has no gather class")
+        a_val = torch.from_numpy(A.val).to(dev)
+        b_val = a_val
+        b_col = torch.from_numpy(A.col.astype(np.int32)).to(dev)
+        rows, tot = [], dict.fromkeys(("ms", "plain_ms", "library_ms"),
+                                      0.0)
+        for c, d in cls:
+            args = (d, a_val, b_col, b_val)
+            kw = dict(W=c.W, rb=c.rb)
+            K, prod, rl = bk.front_gather(*args, **kw)
+            pK, pP, valid = bk.front_gather_plain(*args, **kw)
+            check(torch.equal(K, pK)
+                  and torch.equal(prod.view(torch.int64),
+                                  pP.view(torch.int64))
+                  and torch.equal(rl, valid.sum(dim=1, dtype=torch.int32)),
+                  f"gather_front differs from its plain version on "
+                  f"{name}'s W={c.W} class")
+            err = max(err, float((prod - pP).abs().max()))
+            del K, prod, rl, pK, pP, valid
+            live = c.ent_len.astype(np.int64).ravel()
+            start = c.ent_src.astype(np.int64).ravel()[live > 0]
+            live = live[live > 0]
+            src = (np.repeat(start - np.concatenate([[0], np.cumsum(
+                live)[:-1]]), live) + np.arange(int(live.sum())))
+            idx = torch.from_numpy(src).to(dev)
+            slots = c.nchunks * c.rb * c.W
+            row = {"W": c.W, "rows": int((c.rows_g >= 0).sum()),
+                   "slots": slots, "live": int(live.sum()),
+                   "ms": cuda_ms(lambda: bk.front_gather(*args, **kw), 20),
+                   "plain_ms": cuda_ms(
+                       lambda: bk.front_gather_plain(*args, **kw), 3,
+                       warmup=1),
+                   "library_ms": cuda_ms(
+                       lambda: (b_col.index_select(0, idx),
+                                b_val.index_select(0, idx)), 20),
+                   "bound_ms": gather_bound_ms(slots, int(live.sum()),
+                                               A.nnz)}
+            del idx
+            for k in tot:
+                tot[k] += row[k]
+            rows.append(row)
+            print(f"gather_front {name} W={c.W} rows={row['rows']} "
+                  f"slots={slots} live={row['live']}: {row['ms']:.4f} ms, "
+                  f"plain {row['plain_ms']:.4f} ms, index_select "
+                  f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
+                  f" ms, exact=True", flush=True)
+        tot["bound_ms"] = gather_bound_ms(
+            sum(r["slots"] for r in rows), sum(r["live"] for r in rows),
+            A.nnz)
+        out[name] = dict(tot, classes=rows)
+        print(f"gather_front {name} all {len(rows)} classes: "
+              f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
+              f"index_select {tot['library_ms']:.4f} ms, bound "
+              f"{tot['bound_ms']:.4f} ms", flush=True)
+    out["timed_launches"] = gf.gather_front.launches
+    out["max_abs_err"] = err
+    check(out["timed_launches"] > 0, "gather_front never launched")
+    return out
+
+
+def gather_bound_ms(slots: int, live: int, nnz_b: int) -> float:
+    """The gather frontend's byte bound in f64, as
+    ``front.gather_roofline_pct`` counts it: 12 B written a slot, and 12 B
+    read for each of B's nonzeros that the ``live`` covered slots read, at
+    most ``nnz_b`` (B's repeated reads can come from L2)."""
+    return 12 * (slots + min(live, nnz_b)) / HBM_BYTES_PER_S * 1e3
+
+
+def main_path_phase(torch, mt, et, rf, pn, gf, dev):
+    """Drive the main path on every stand-in; the tail kernels',
+    ragged_fill's and gather_front's launch counts are set to 0 just
+    before and read just after.  Returns (states, oracles, matrices,
+    launches)."""
     from mh_spgemm_torch.io.suites import load_matrix
     from mh_spgemm_torch.pipeline import spgemm_bucketed
     kept, refs, mats = {}, {}, {}
     counted = (et.esc_tail_flat, et.esc_tail, rf.ragged_fill, pn.pgather,
-               pn.proute)
+               pn.proute, gf.gather_front)
     for fn in counted:
         fn.launches = 0
     for name in MATRICES:
@@ -721,7 +837,8 @@ def main_path_phase(torch, mt, et, rf, pn, dev):
           flush=True)
     check(kept[FILL_MATRIX].plan.ext is not None,
           f"{FILL_MATRIX}'s extraction is not windowed")
-    for fn in ("esc_tail_flat", "ragged_fill", "pgather", "proute"):
+    for fn in ("esc_tail_flat", "ragged_fill", "pgather", "proute",
+               "gather_front"):
         check(launches[fn] > 0, f"{fn} was not launched on the main path")
     return kept, refs, mats, launches
 
@@ -1324,14 +1441,16 @@ def fill_phase(torch, mt, et, rf, A, ref, default_state, dev) -> tuple:
     return state, launches
 
 
-def masked_phase(torch, mt, rf, mats: dict, refs: dict, dev) -> dict:
-    """spgemm_masked cold, then warm, on each stand-in; ragged_fill is
-    set to 0 before each and must have run for each."""
+def masked_phase(torch, mt, rf, gf, mats: dict, refs: dict, dev) -> dict:
+    """spgemm_masked cold, then warm, on each stand-in; ragged_fill and
+    gather_front are set to 0 before each and read after it, and
+    ragged_fill must have run for each.  Returns each kernel's launches
+    by stand-in."""
     from mh_spgemm_torch.pipeline import spgemm_masked
-    launches = {}
+    launches = {"ragged_fill": {}, "gather_front": {}}
     for name in MASKED_MATRICES:
         A, ref = mats[name], refs[name]
-        rf.ragged_fill.launches = 0
+        rf.ragged_fill.launches = gf.gather_front.launches = 0
         t0 = time.perf_counter()
         Cd, state = spgemm_masked(A, A, device=dev)
         cold_ms = (time.perf_counter() - t0) * 1e3
@@ -1345,8 +1464,10 @@ def masked_phase(torch, mt, rf, mats: dict, refs: dict, dev) -> dict:
         ms = cuda_ms(warm, WARM_CALLS, warmup=1)
         check(out["C"].host().equals(ref, tol=1e-9),
               f"masked {name}: warm != oracle")
-        launches[name] = rf.ragged_fill.launches
-        check(launches[name] > 0, f"masked {name}: ragged_fill did not run")
+        for fn in (rf.ragged_fill, gf.gather_front):
+            launches[fn.__name__][name] = fn.launches
+        check(launches["ragged_fill"][name] > 0,
+              f"masked {name}: ragged_fill did not run")
         plan = state.plan
         intprod = A.intprod(A)
         row = {"matrix": name, "warm_ms": ms,
@@ -1357,7 +1478,8 @@ def masked_phase(torch, mt, rf, mats: dict, refs: dict, dev) -> dict:
                            for c, e in zip(plan.classes, state.extras)],
                "windowed_extraction": plan.ext is not None,
                "slots": sum(c.W * c.rb * c.nchunks for c in plan.classes),
-               "ragged_fill_launches": launches[name]}
+               "ragged_fill_launches": launches["ragged_fill"][name],
+               "gather_front_launches": launches["gather_front"][name]}
         print("masked " + json.dumps(row), flush=True)
         del Cd, out, state
     return launches
@@ -1695,7 +1817,7 @@ def mp_key(matrix: str, engine: str, strategy: str, backend: str,
     return (matrix, engine, strategy, backend, force)
 
 
-def dist_phase(torch, mt, rfx, et, rf, mats: dict, refs: dict,
+def dist_phase(torch, mt, rfx, et, rf, gf, mats: dict, refs: dict,
                digests: dict):
     """spgemm_dist on D=8 shards of the one card (grid2d on 4 x 2) for
     each of DIST_CALLS: cold (host wall clock, planning included), then
@@ -1710,7 +1832,7 @@ def dist_phase(torch, mt, rfx, et, rf, mats: dict, refs: dict,
     from mh_spgemm_torch.parallel.spgemm_dist import spgemm_dist
     from mh_spgemm_torch.parallel.worker import csr_sha
     counted = (rfx.halo_exchange, et.esc_tail, et.esc_tail_flat,
-               rf.ragged_fill)
+               rf.ragged_fill, gf.gather_front)
     for fn in counted:
         fn.launches = 0
     mesh = make_row_mesh(DIST_SHARDS)
@@ -2554,6 +2676,7 @@ def main() -> int:
     from mh_spgemm_torch.ops import blockdense as tbd
     from mh_spgemm_torch.ops import bucketed as bk
     from mh_spgemm_torch.ops import esc_tail as et
+    from mh_spgemm_torch.ops import gather_front as gf
     from mh_spgemm_torch.ops import pair_matmul as pm
     from mh_spgemm_torch.ops import planned as pn
     from mh_spgemm_torch.ops import ragged_fill as rf
@@ -2595,8 +2718,10 @@ def main() -> int:
     herr = halo_kernel_phase(torch, rfx, dev)
     perrs = pair_kernel_phase(torch, pm, tbd, bd_mats["pdb1HYS"], dev)
     done("kernels")
+    tg = gather_front_phase(torch, mt, bk, gf, dev)
+    done("gather frontend")
     states, refs, mats, launches = main_path_phase(torch, mt, et, rf, pn,
-                                                   dev)
+                                                   gf, dev)
     done("bucketed")
     off_states = planned_vs_off_phase(torch, mt, mats, refs, states, dev)
     done("planned against off")
@@ -2628,10 +2753,10 @@ def main() -> int:
     pt = time_pair_kernels(torch, pm, tbd, bd_states)
     del bd_states
     done("block-dense stages and pair-kernel timing")
-    m_launches = masked_phase(torch, mt, rf, mats, refs, dev)
+    m_launches = masked_phase(torch, mt, rf, gf, mats, refs, dev)
     done("masked")
     dist_rows, dist_launches, dist_states = dist_phase(
-        torch, mt, rfx, et, rf, mats, refs, digests)
+        torch, mt, rfx, et, rf, gf, mats, refs, digests)
     th = time_halo(torch, rfx, dist_states)
     del mats, refs, dist_states
     done("distributed and halo_exchange timing")
@@ -2661,9 +2786,14 @@ def main() -> int:
     fill_by_phase = {"bucketed": launches["ragged_fill"],
                      "forced_fill": fill_launches["ragged_fill"],
                      "blockdense": bd_launches["ragged_fill"],
-                     "masked": sum(m_launches.values()),
+                     "masked": sum(m_launches["ragged_fill"].values()),
                      "distributed": dist_launches["ragged_fill"],
                      "multiprocess": mp["launches"]["ragged_fill"]}
+    gather_by_phase = {
+        "bucketed": launches["gather_front"],
+        "masked": sum(m_launches["gather_front"].values()),
+        "distributed": dist_launches["gather_front"],
+        "multiprocess": mp["launches"]["gather_front"]}
     replaces = {"pair_matmul_f32": "mh_spgemm_tpu/ops/pallas_gather.py:108",
                 "pair_matmul_f64": "mh_spgemm_tpu/ops/ozaki.py:201",
                 "block_gather": "mh_spgemm_tpu/ops/pallas_gather.py:43"}
@@ -2708,7 +2838,20 @@ def main() -> int:
         "bound_ms": tf["bound_ms"], "bound_by": tf["bound_by"],
         "library_ms": tf["library_ms"],
         "timed_on": f"{FILL_MATRIX} windowed extraction",
-        "timed_words": tf["words"]}] + [{
+        "timed_words": tf["words"]}, {
+        "name": "gather_front", "route": "cuda",
+        "source": "mh_spgemm_torch/csrc/gather_front.cu",
+        "replaces": None,
+        "launches": sum(gather_by_phase.values()),
+        "launches_by_phase": gather_by_phase,
+        "timed_launches": tg["timed_launches"],
+        "max_abs_err": tg["max_abs_err"],
+        **{k: tg["er_s17_ef16"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": "bytes",
+        "timed_on": "er_s17_ef16's five gather classes",
+        "er_s17_ef16": tg["er_s17_ef16"],
+        "g500_s15_ef16": tg["g500_s15_ef16"]}] + [{
             "name": name, "route": "cuda",
             "source": "mh_spgemm_torch/csrc/planned.cu",
             "replaces": f"mh_spgemm_tpu/ops/planned.py:{line}",

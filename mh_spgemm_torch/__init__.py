@@ -5,7 +5,8 @@ Sparse general matrix-matrix multiplication C = A @ B over CSR matrices
 with two engines and a per-matrix choice between them (``mode="auto"``):
 
 * the bucketed expand-sort-compress engine: rows binned by product count
-  into power-of-two width classes, one gather-multiply per class (or,
+  into power-of-two width classes, one gather-multiply per class (on the
+  gather frontend the hand-written CUDA kernel ``csrc/gather_front.cu``;
   for rows with long B spans, a run copy by the hand-written CUDA kernel
   ``csrc/ragged_fill.cu``), and a hand-written CUDA kernel
   (``csrc/esc_tail.cu``) that sorts, accumulates and left-packs each

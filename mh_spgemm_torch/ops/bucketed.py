@@ -82,6 +82,7 @@ import torch
 
 from ..timing import span
 from . import esc_tail as esc_tail_mod
+from . import gather_front as gf
 from . import planned as pn
 from . import ragged_fill as rf
 from .shapes import quantize
@@ -228,6 +229,12 @@ class BucketPlan:
     # ones
     tail_wide_slots: int = 0
     tail_wide_live_slots: int = 0
+    # the slots of the gather classes that one run sends to the
+    # ``gather_front`` kernel (tensors off the CPU; 0 on the CPU), set by
+    # ``upload_plan``; and of those the slots that entries cover
+    # (``ent_len``'s sum)
+    gather_front_slots: int = 0
+    gather_front_live_slots: int = 0
     # the legacy-replan decision (pipeline.prepare_bucketed_state): this
     # plan replaced a discarded planned plan; the demoted share of that
     # judged plan (None where no plan was judged); its demoted classes
@@ -241,8 +248,9 @@ class BucketPlan:
         the replan decision: ``replanned``, ``replan_share`` (compared
         with ``_REPLAN_SHARE``) and ``demoted_classes``; and
         ``padded_tail_slots`` (``tail_padded_slots``),
-        ``wide_tail_slots`` (``tail_wide_slots``) and
-        ``wide_tail_live_slots`` (``tail_wide_live_slots``)."""
+        ``wide_tail_slots`` (``tail_wide_slots``),
+        ``wide_tail_live_slots`` (``tail_wide_live_slots``),
+        ``gather_front_slots`` and ``gather_front_live_slots``."""
         area = sum(c.W * c.rb * c.nchunks for c in self.classes)
         return {
             "engine": "bucketed",
@@ -257,6 +265,8 @@ class BucketPlan:
             "padded_tail_slots": self.tail_padded_slots,
             "wide_tail_slots": self.tail_wide_slots,
             "wide_tail_live_slots": self.tail_wide_live_slots,
+            "gather_front_slots": self.gather_front_slots,
+            "gather_front_live_slots": self.gather_front_live_slots,
             "classes": [
                 {"W": c.W, "chunks": c.nchunks, "rows_per_chunk": c.rb,
                  "rows": int((c.rows_g >= 0).sum()),
@@ -1275,7 +1285,9 @@ def _host_field(c: ClassPlan, k: str) -> np.ndarray:
 
 def upload_plan(plan: BucketPlan, device) -> None:
     """Copy each class's tensors (those its frontend reads) to ``device``
-    once and keep them on the plan."""
+    once and keep them on the plan; set ``gather_front_slots`` and
+    ``gather_front_live_slots`` for runs on ``device`` (0 on the CPU,
+    whose tensors take the plain gather frontend)."""
     device = torch.device(device)
     if plan.dev is not None and plan.device == device:
         return
@@ -1288,6 +1300,11 @@ def upload_plan(plan: BucketPlan, device) -> None:
             device)
         plan.ext_static_dev = None
         plan.ext_pf_dev = None
+        cls = ([c for c in plan.classes if c.frontend == "gather"]
+               if device.type != "cpu" else [])
+        plan.gather_front_slots = sum(c.nchunks * c.rb * c.W for c in cls)
+        plan.gather_front_live_slots = sum(int(c.ent_len.sum())
+                                           for c in cls)
 
 
 def _product(AV, bv, valid):
@@ -1323,7 +1340,7 @@ def _seed(ent_dst, vals, *, rows: int, RW: int, W: int, fill=0):
     return out[: nch * RW].view(rows, W)
 
 
-def front_gather(d: dict, a_val, b_col, b_val, *, W: int, rb: int):
+def front_gather_plain(d: dict, a_val, b_col, b_val, *, W: int, rb: int):
     """Gather frontend over all chunks of a class: seed each entry's
     (B source, length, slot, A value) at its first slot, hold them down
     the entry's span, and gather B's column and value per slot (the JAX
@@ -1347,6 +1364,18 @@ def front_gather(d: dict, a_val, b_col, b_val, *, W: int, rb: int):
     src = torch.where(valid, src0 + off, 0).long()
     K = torch.where(valid, b_col[src], I32_MAX)
     return K, _product(AV, b_val[src], valid), valid
+
+
+def front_gather(d: dict, a_val, b_col, b_val, *, W: int, rb: int):
+    """Gather frontend of a class: on CUDA tensors one launch of the
+    ``gather_front`` kernel (``ops/gather_front.py``), on CPU tensors its
+    plain version :func:`front_gather_plain`.  Returns (K, prod, row_len):
+    ``[nchunks * rb, W]`` with K 2^31-1 and prod 0 where no product
+    lands, and each row's product count."""
+    if a_val.device.type != "cpu":
+        return gf.gather_front(d, a_val, b_col, b_val, W=W, rb=rb)
+    K, prod, valid = front_gather_plain(d, a_val, b_col, b_val, W=W, rb=rb)
+    return K, prod, valid.sum(dim=1, dtype=torch.int32)
 
 
 def slab_planes(slab, *, nplanes: int, out_rows: int, rb: int, W: int):
@@ -1578,9 +1607,7 @@ def class_front(c: ClassPlan, d: dict, a_val, b_col, b_val, pairs2d):
         if c.pre:
             return expand_pre(d["slot_src"], d["slot_aidx"], a_val, b_col,
                               b_val)
-        K, prod, valid = front_gather(d, a_val, b_col, b_val, W=c.W,
-                                      rb=c.rb)
-        return K, prod, valid.sum(dim=1, dtype=torch.int32)
+        return front_gather(d, a_val, b_col, b_val, W=c.W, rb=c.rb)
 
 
 def class_tail(c: ClassPlan, front, *, route: str,

@@ -95,12 +95,14 @@ def parse_call(spec: str) -> dict:
 
 
 def _counters():
-    from ..ops import esc_tail, planned, ragged_fill, remote_fetch
+    from ..ops import (esc_tail, gather_front, planned, ragged_fill,
+                       remote_fetch)
     return {"halo_exchange": remote_fetch.halo_exchange,
             "esc_tail": esc_tail.esc_tail,
             "esc_tail_flat": esc_tail.esc_tail_flat,
             "pgather": planned.pgather, "proute": planned.proute,
-            "ragged_fill": ragged_fill.ragged_fill}
+            "ragged_fill": ragged_fill.ragged_fill,
+            "gather_front": gather_front.gather_front}
 
 
 def _fence(torch, cuda: bool) -> None:

@@ -9,8 +9,10 @@ driver's (``ns_per_product`` is a time; the JAX driver's
 port's replan counters, ``replanned``, ``replan_share`` and
 ``demoted_classes``, have no JAX key and are checked in
 ``test_torch_trace.py``; so have its ``padded_tail_slots``, checked in
-``test_torch_padded_tail.py``, and ``wide_tail_slots`` and
-``wide_tail_live_slots``, checked in ``test_torch_wide_tail.py``).  Under
+``test_torch_padded_tail.py``, ``wide_tail_slots`` and
+``wide_tail_live_slots``, checked in ``test_torch_wide_tail.py``, and
+``gather_front_slots`` and ``gather_front_live_slots``, checked in
+``test_torch_gather_front.py``).  Under
 ``--mode auto`` the two compare only where both chose the same engine.
 """
 
@@ -32,7 +34,8 @@ MATRICES = {
 }
 TIMED = ("ns_per_product", "floor_ns_per_product")
 PORT_ONLY = ("replanned", "replan_share", "demoted_classes",
-             "padded_tail_slots", "wide_tail_slots", "wide_tail_live_slots")
+             "padded_tail_slots", "wide_tail_slots", "wide_tail_live_slots",
+             "gather_front_slots", "gather_front_live_slots")
 
 
 @pytest.fixture(scope="module")
